@@ -1,0 +1,114 @@
+"""The slice end to end on the CPU: the port's offline_stage + sign_online
+gives the same (r, s, recid) as the reference package's run of the same
+functions, for the same key, the same SessionRng seed and the same message,
+and every signature verifies.
+
+Key: session 0 of the committed tests/fixtures/gg20key_20_2_1_3_768.json,
+tiled to S = 2 (one key set serving two sessions, the serving pattern), so
+that the forced cross-session batch verification (TPU_MPC_BATCH_VERIFY=1 on
+the reference side, TPU_MPC_TORCH_BATCH_VERIFY=1 on the port's) really
+takes the pow_prod_axis0 / reduce_axis0 path at S = 2.  The verifier's
+batching exponents come from os.urandom, not from SessionRng, so they do not
+change (r, s).  Both packages' runs happen once, in one test."""
+
+import hashlib
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(HERE, "..", "fixtures", "gg20key_20_2_1_3_768.json")
+SEED = 0x5169
+S = 2
+
+
+def _key_dict():
+    with open(FIXTURE) as f:
+        d = json.load(f)
+    d1 = {k: ([v[0]] * S if isinstance(v, list) else v) for k, v in d.items()}
+    d1["S"] = S
+    return d1
+
+
+def _reference_key(d):
+    spec = importlib.util.spec_from_file_location("keycache", os.path.join(HERE, "..", "keycache.py"))
+    kc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kc)
+    return kc._decode(d)
+
+
+def _run_both(d):
+    """One run of each package on the same key, seed and message."""
+    from tpu_mpc_torch.core import pallas_rns as tpr
+    from tpu_mpc_torch.protocols.gg20 import batch as tg
+    from tpu_mpc_torch.utils.rng import SessionRng as TRng
+
+    m = int.from_bytes(hashlib.sha256(b"gg20 message").digest(), "big")
+    reduced = []
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in (("TPU_MPC_BATCH_VERIFY", "1"), ("TPU_MPC_TORCH_BATCH_VERIFY", "1"),
+                     ("TPU_MPC_PALLAS", "0"), ("TPU_MPC_ENC_TABLES", "0")):
+            mp.setenv(k, v)
+        fin = tpr._finish_reduce
+        mp.setattr(tpr, "_finish_reduce",
+                   lambda *a, **kw: reduced.append(a[4]) or fin(*a, **kw))
+        tkey = tg.key_from_material(d, device="cpu")
+        toff = tg.offline_stage(tkey, [0, 1], TRng(SEED))
+        tsig = tg.sign_online(toff, m)
+
+        from tpu_mpc.protocols.gg20 import batch as jg
+        from tpu_mpc.utils.rng import SessionRng as JRng
+
+        jkey = _reference_key(d)
+        joff = jg.offline_stage(jkey, [0, 1], JRng(SEED))
+        jsig = jg.sign_online(joff, m)
+    return toff, tsig, joff, jsig, reduced, m
+
+
+def test_slice_signatures_equal_reference_and_verify():
+    """The one test that runs the reference's offline_stage (minutes on the
+    CPU): every assertion about the slice reads from this single run, so
+    that no test scheduler splits it across processes."""
+    from tpu_mpc_torch.ec import secp256k1 as tec
+    from tpu_mpc_torch.host import ec as hec
+
+    toff, tsig, joff, jsig, reduced, m = _run_both(_key_dict())
+    # (r, s, recid) bit for bit
+    assert [int(v) for v in tsig.r] == [int(v) for v in jsig.r]
+    assert [int(v) for v in tsig.s] == [int(v) for v in jsig.s]
+    assert [int(v) for v in tsig.recid] == [int(v) for v in jsig.recid]
+    # every signature verifies, every offline check passed
+    assert tsig.sig_valid.all() and tsig.ok.all() and toff.ok.all() and jsig.sig_valid.all()
+    for name in toff.debug_masks:
+        assert np.asarray(toff.debug_masks[name]).all(), name
+    y = tec.points_to_host(toff.y)
+    for b in range(S):
+        assert hec.ecdsa_verify(y[b], m % hec.N, int(tsig.r[b]), int(tsig.s[b]))
+        assert int(tsig.s[b]) <= hec.N // 2
+    # the offline transcript's secrets and ciphertexts equal the reference's
+    for f in ("r_x", "k", "sigma_i", "delta_i", "msg_a_c", "alpha", "beta_g", "miu"):
+        assert np.array_equal(np.asarray(getattr(toff, f), dtype=object),
+                              np.asarray(getattr(joff, f), dtype=object)), f
+    # batch verification took the axis-0 product: alice_verify_fast and
+    # pdl_slack_verify_fast, five products each, over the S sessions
+    assert len(reduced) >= 10 and set(reduced) == {S}
+
+
+def test_key_loader_takes_reference_objects():
+    from tpu_mpc_torch.ec import secp256k1 as tec
+    from tpu_mpc_torch.protocols.gg20 import batch as tg
+
+    d = _key_dict()
+    a = tg.key_from_material(d, device="cpu")
+    b = tg.key_from_material(_reference_key(d), device="cpu")
+    assert (a.S, a.t, a.n, a.paillier_bits) == (b.S, b.t, b.n, b.paillier_bits)
+    for f in ("p", "q", "u", "x"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(a.dlog_stmt.ctx.n_ints, b.dlog_stmt.ctx.n_ints)
+    assert tec.points_to_host_list(a.y_i) == tec.points_to_host_list(b.y_i)
+    assert tec.points_to_host_list(a.vss.commitments) == \
+        tec.points_to_host_list(b.vss.commitments)
+    assert a.ek.nn_ctx.rns_ctx().rows.equal(b.ek.nn_ctx.rns_ctx().rows)

@@ -1,0 +1,191 @@
+"""K1, the fused RNS modexp kernel: wrapper, plain version and dispatch
+(port of tpu_mpc/core/pallas_rns.py).
+
+K1 replaces tpu_mpc/core/pallas_rns.py:_exp_kernel; its CUDA source is
+csrc/rns_exp.cu (the source note there says what bounds it on the H100 and
+how the design answers).  exp_call launches it for CUDA tensors; for CPU
+tensors it takes exp_plain, the same function in PyTorch ops.  exp_plain is
+also what chip_smoke.py holds the kernel against, bit for bit.
+
+The reference's dispatch glue maps as follows: _pack_words is kept;
+_unpack_residues and _prep_x (binary -> residues, channel-major padding)
+are K1's prologue, which reads the base's 16-bit limbs directly; _prep_ctx
+and _ctx_blocks become RnsCtx rows and _ctx_blocks below; _planes_out is
+the kernel's exact column-sum output; _finish_reduce is below.
+
+The fixed-base kernel K2 (_fixed_kernel) is not ported yet: this slice runs
+without fixed-base tables.
+
+Kernel I/O (lanes B, widths from core/rns.py:RnsParams):
+  x     [B, Lin]   16-bit limbs of the base, already reduced mod N
+  e     [B, ne2]   packed 32-bit exponent words (limb 2j in the low half)
+  rows  [C, 3*CH]  RnsCtx rows, C = 1 (one modulus for all lanes) or B
+  out   [B, Lout]  exact binary column sums (emit_planes) or
+        [B, CH]    big-Montgomery residues (for the axis-0 product)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .limbs import batch_to_limbs, nlimbs
+from .rns import (
+    RnsLazy, RnsParams, ctx_parts, dev_consts, rns_from_mont_cols, rns_montmul,
+)
+
+_NENT = 16
+_SHIFTS_MSB = (28, 24, 20, 16, 12, 8, 4, 0)   # window shifts in one e-word
+
+
+def _pack_words(e_limbs: np.ndarray) -> np.ndarray:
+    """[B, Le] 16-bit limbs -> [B, ceil(Le/2)] packed 32-bit e-words."""
+    B, Le = e_limbs.shape
+    if Le % 2:
+        e_limbs = np.concatenate([e_limbs, np.zeros((B, 1), e_limbs.dtype)], axis=1)
+    return np.ascontiguousarray(e_limbs[:, 0::2] | (e_limbs[:, 1::2] << 16))
+
+
+def exp_plain(x, e, rows, nbits: int, emit_planes: bool = True):
+    """The function K1 computes, in PyTorch ops (same values, any device)."""
+    par = RnsParams(nbits)
+    cs = dev_consts(par, x.device)
+    cp = ctx_parts(rows, par)
+    B = x.shape[0]
+    xv = torch.cat([
+        torch.matmul(x.double(), cs["W16A"]).long() % cs["pA"],
+        torch.matmul(x.double(), cs["W16B"]).long() % cs["pB"],
+        (x[:, :1] & 0xFFFF),
+    ], dim=-1)
+    mm = lambda a, b: rns_montmul(a, b, cp, cs, par)
+    one = cp["mon"].expand(B, par.CH)
+    xm = mm(xv, cp["r2"].expand(B, par.CH))
+    tab = [one, xm]
+    for _ in range(_NENT - 2):
+        tab.append(mm(tab[-1], xm))
+    T = torch.stack(tab, 0)                               # [16, B, CH]
+    ar = torch.arange(B, device=x.device)
+    acc = one
+    ne2 = e.shape[1]
+    for j in range(ne2):
+        word = e[:, ne2 - 1 - j]
+        for s in _SHIFTS_MSB:
+            d = (word >> s) & (_NENT - 1)
+            for _ in range(4):
+                acc = mm(acc, acc)
+            acc = mm(acc, T[d, ar])
+    if not emit_planes:
+        return acc
+    return rns_from_mont_cols(acc, cp, cs, par)
+
+
+def _i32(t):
+    """int64 tensor holding u32 values -> int32 tensor with the same bits."""
+    return torch.where(t >= (1 << 31), t - (1 << 32), t).to(torch.int32).contiguous()
+
+
+def exp_call(x, e, rows, nbits: int, emit_planes: bool = True):
+    """K1 on CUDA tensors; the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return exp_plain(x, e, rows, nbits, emit_planes)
+    if x.device.type != "cuda" or e.device != x.device or rows.device != x.device:
+        raise ValueError("K1: x, e and rows must lie on one CUDA device")
+    par = RnsParams(nbits)
+    B = x.shape[0]
+    if x.shape != (B, par.Lin) or e.shape[0] != B or rows.shape[-1] != 3 * par.CH \
+            or rows.shape[0] not in (1, B):
+        raise ValueError(f"K1: bad shapes x{tuple(x.shape)} e{tuple(e.shape)} "
+                         f"rows{tuple(rows.shape)} at {nbits} bits")
+    if B == 0:
+        return torch.empty((0, par.Lout) if emit_planes else (0, par.CH),
+                           dtype=torch.int64, device=x.device)
+    lib = kernels.lib("rns")
+    cs = dev_consts(par, x.device)
+    x32, e32, r32 = _i32(x), _i32(e), _i32(rows)
+    cols = torch.empty((B, par.Lout) if emit_planes else (1,), dtype=torch.int64,
+                       device=x.device)
+    res = torch.empty((1,) if emit_planes else (B, par.CH), dtype=torch.int32,
+                      device=x.device)
+    rc = lib.k1_exp(
+        x32.data_ptr(), e32.data_ptr(), r32.data_ptr(), int(rows.shape[0] != 1),
+        cs["flat32"].data_ptr(), B, par.K, par.Kp, par.Lin, par.Lout, e.shape[1],
+        par.invMA_r, par.invMB_r, int(emit_planes), cols.data_ptr(),
+        res.data_ptr(), kernels.stream_handle(x.device),
+    )
+    kernels.check(rc, "K1 k1_exp")
+    kernels.count("K1")
+    return cols if emit_planes else res.to(torch.int64)
+
+
+def _values_shared(n_b: np.ndarray) -> bool:
+    """True iff every modulus in the (broadcast) batch is the same value."""
+    flat = n_b.reshape(-1)
+    if flat.shape[0] <= 1:
+        return True
+    first = flat[0]
+    return all((v is first) or (v == first) for v in flat.tolist())
+
+
+def _ctx_blocks(ctx, shape, n_b) -> torch.Tensor:
+    """RnsCtx rows for a call of batch `shape`: [1, W] when every lane shares
+    one modulus (the tiled-key serving pattern), else [lead, W]."""
+    W = ctx.rows.shape[-1]
+    nc = int(np.prod(ctx.batch_shape, dtype=np.int64))
+    if nc == 1 or _values_shared(n_b):
+        return ctx.rows.reshape(-1, W)[:1].contiguous()
+    lead = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    return torch.broadcast_to(ctx.rows, tuple(shape) + (W,)).reshape(lead, W).contiguous()
+
+
+def _finish_reduce(res, rows, nbits: int, lead: int, S: int):
+    """Big-Montgomery residues [lead, CH] -> tree product over the leading S
+    axis -> decode columns [lead // S, Lout].  The reduced output keeps ONE
+    modulus per trailing slot: moduli are constant along axis 0 (the
+    caller's precondition) but may vary along the trailing dims."""
+    par = RnsParams(nbits)
+    cs = dev_consts(par, res.device)
+    rest = lead // S
+    cp = ctx_parts(rows[:rest] if rows.shape[0] > 1 else rows, par)
+    acc = res.reshape(S, rest, par.CH)
+    while acc.shape[0] > 1:
+        n = acc.shape[0]
+        h = n // 2
+        pair = rns_montmul(acc[:h], acc[n - h:], cp, cs, par)
+        if n % 2:
+            pair = torch.cat([pair, acc[h:h + 1]], dim=0)
+        acc = pair
+    return rns_from_mont_cols(acc[0], cp, cs, par)
+
+
+def _obj_mod(a, m) -> np.ndarray:
+    return np.vectorize(lambda v, w: int(v) % int(w), otypes=[object])(a, m)
+
+
+def exp_dispatch(ctx, n_ints, base_ints, exp_ints, ebits: int,
+                 reduce_axis0: bool = False) -> RnsLazy:
+    """x^e mod n over a broadcast batch -> RnsLazy.  reduce_axis0: the
+    product over the leading axis is folded on the device before decode
+    (moduli must be constant along axis 0)."""
+    nbits = ctx.params_nbits
+    par = RnsParams(nbits)
+    base = np.asarray(base_ints, dtype=object)
+    expv = np.asarray(exp_ints, dtype=object)
+    n_arr = np.asarray(n_ints, dtype=object)
+    shape = np.broadcast_shapes(base.shape, expv.shape, n_arr.shape)
+    n_b = np.broadcast_to(n_arr, shape)
+    lead = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    dev = ctx.rows.device
+    xb = _obj_mod(np.broadcast_to(base, shape), n_b)
+    x = torch.as_tensor(batch_to_limbs(xb, par.Lin).reshape(lead, par.Lin), device=dev)
+    Le = nlimbs(max(ebits, 1))
+    ew = _pack_words(batch_to_limbs(np.broadcast_to(expv, shape), Le).reshape(lead, Le))
+    e = torch.as_tensor(ew, device=dev)
+    rows = _ctx_blocks(ctx, shape, n_b)
+    if reduce_axis0:
+        res = exp_call(x, e, rows, nbits, emit_planes=False)
+        cols = _finish_reduce(res, rows, nbits, lead, shape[0])
+        return RnsLazy(parts=(cols,), shape=(1,) + tuple(shape[1:]), n_b=n_b[:1],
+                       MA=par.MA)
+    cols = exp_call(x, e, rows, nbits, emit_planes=True)
+    return RnsLazy(parts=(cols,), shape=tuple(shape), n_b=n_b, MA=par.MA)

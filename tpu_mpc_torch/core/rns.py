@@ -1,0 +1,324 @@
+"""RNS (residue number system) Montgomery arithmetic (port of tpu_mpc/core/rns.py).
+
+A big integer is carried as its residues modulo K 16-bit primes (base A),
+Kp = K + 1 further primes (base B) and a redundant 2^16 channel r.  One
+Montgomery multiply x*y*MA^{-1} mod N is a per-channel product plus two base
+extensions, each an exact integer dot product over the channels:
+
+    approximate A -> B extension:  q_hat = sum_k xi_k * (MA/p_k)  (= q + alpha*MA)
+    exact B -> A extension (Shenoy-Kumaresan, through the r channel)
+
+This is the Bajard-Imbert scheme of the reference module, kept value for
+value: every channel value is canonical (< p), so the plain PyTorch
+functions here and the CUDA kernel K1 (core/pallas_rns.py) produce the same
+residues bit for bit.  Invariant: inputs/outputs < lam*N, lam = 2(K+2).
+
+Port notes:
+  * u32 channel values are carried in int64 tensors (torch on the CPU has no
+    uint32 `+`, `>>` or `>=`).
+  * The extension dots are float64 matrix products: every term is < 2^32 and
+    every sum < K * 2^32 < 2^53, so float64 is exact on both the CPU and the
+    card (no int64 matmul exists on CUDA).
+  * RnsCtx holds one row of per-modulus constants in the layout K1 reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .limbs import batch_to_limbs, nlimbs
+
+WINDOW = 4
+P_R = 1 << 16  # redundant Shenoy-Kumaresan channel modulus
+
+
+# --------------------------------------------------------------------------
+# host-side parameter machinery
+# --------------------------------------------------------------------------
+
+def _is_prime(m: int) -> bool:
+    """Deterministic Miller-Rabin (exact below 3.3e24 with this base set)."""
+    if m < 2 or m % 2 == 0:
+        return m == 2
+    d, s = m - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        s += 1
+    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+        x = pow(a, d, m)
+        if x in (1, m - 1):
+            continue
+        for _ in range(s - 1):
+            x = x * x % m
+            if x == m - 1:
+                break
+        else:
+            return False
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _primes_16bit(count: int) -> tuple:
+    """`count` largest primes below 2^16, descending."""
+    out = []
+    n = (1 << 16) - 1
+    while len(out) < count and n > (1 << 15):
+        if _is_prime(n):
+            out.append(n)
+        n -= 2
+    if len(out) < count:
+        raise ValueError("16-bit prime supply exhausted")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+class RnsParams:
+    """Modulus-independent RNS bases + extension matrices for one operand
+    width (cached per nbits).  Same constants as the reference."""
+
+    def __init__(self, nbits: int):
+        K = nlimbs(nbits) + 2   # MA > 4(K+2) * 2^nbits
+        Kp = K + 1              # MB > MA
+        ps = _primes_16bit(K + Kp)
+        self.nbits, self.K, self.Kp = nbits, K, Kp
+        self.CH = K + Kp + 1    # channels of one value: A | B | r
+        self.pA, self.pB = ps[:K], ps[K:]
+        self.MA = functools.reduce(lambda a, b: a * b, self.pA, 1)
+        self.MB = functools.reduce(lambda a, b: a * b, self.pB, 1)
+        lam = 2 * (K + 2)
+        assert self.MA > 4 * (K + 2) << nbits, "MA margin too small"
+        assert self.MB > lam << nbits, "MB margin too small"
+        self.lam = lam
+
+        self.pA_arr = np.asarray(self.pA, dtype=np.int64)
+        self.pB_arr = np.asarray(self.pB, dtype=np.int64)
+        MAk = [self.MA // p for p in self.pA]
+        MBj = [self.MB // p for p in self.pB]
+        self.invMAk = np.asarray(
+            [pow(m % p, -1, p) for m, p in zip(MAk, self.pA)], dtype=np.int64)
+        self.invMBj = np.asarray(
+            [pow(m % p, -1, p) for m, p in zip(MBj, self.pB)], dtype=np.int64)
+        # extension matrices; last column is the redundant 2^16 channel
+        self.W1 = np.asarray(
+            [[m % p for p in self.pB] + [m % P_R] for m in MAk], dtype=np.int64
+        )  # [K, Kp+1]
+        self.W2 = np.asarray(
+            [[m % p for p in self.pA] + [m % P_R] for m in MBj], dtype=np.int64
+        )  # [Kp, K+1]
+        self.MB_A = np.asarray([self.MB % p for p in self.pA], dtype=np.int64)
+        self.invMB_r = int(pow(self.MB % P_R, -1, P_R))
+        self.invMA_B = np.asarray(
+            [pow(self.MA % p, -1, p) for p in self.pB], dtype=np.int64)
+        self.invMA_r = int(pow(self.MA % P_R, -1, P_R))
+        # binary reconstruction: 16-bit limbs of MA/p_k  [K, Lout]
+        self.Lout = K + 1  # sum_k xi_k*(MA/p_k) < K*MA < 2^(16(K+1))
+        self.Wbin = batch_to_limbs(np.asarray(MAk, dtype=object), self.Lout)
+        # binary -> residue: W16[l, k] = 2^(16 l) mod p_k
+        L = nlimbs(nbits)
+        self.Lin = L
+        self.W16A = np.asarray(
+            [[pow(2, 16 * l, p) for p in self.pA] for l in range(L)], dtype=np.int64)
+        self.W16B = np.asarray(
+            [[pow(2, 16 * l, p) for p in self.pB] for l in range(L)], dtype=np.int64)
+
+    def const_vector(self) -> np.ndarray:
+        """Every shared constant in the one flat layout K1 reads:
+        pA, pB, invMAk, invMA_B, invMBj, MB_A, W1, W2, W16A, W16B, Wbin."""
+        parts = [self.pA_arr, self.pB_arr, self.invMAk, self.invMA_B,
+                 self.invMBj, self.MB_A, self.W1, self.W2, self.W16A,
+                 self.W16B, self.Wbin]
+        return np.concatenate([np.asarray(p, np.int64).reshape(-1) for p in parts])
+
+    def to_residues(self, xs) -> np.ndarray:
+        """object ints [...] -> [..., CH] residues (A | B | r)."""
+        xs = np.asarray(xs, dtype=object)
+        flat = xs.reshape(-1).tolist()
+        mods = list(self.pA) + list(self.pB) + [P_R]
+        out = np.asarray([[int(v) % m for m in mods] for v in flat], dtype=np.int64)
+        return out.reshape(xs.shape + (self.CH,))
+
+
+_DEV_CACHE: dict = {}
+
+
+def dev_consts(par: RnsParams, device) -> dict:
+    """Device copies of a width's constants (uploaded once per device)."""
+    key = (par.nbits, str(device))
+    hit = _DEV_CACHE.get(key)
+    if hit is None:
+        t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+        f = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
+        hit = {
+            "pA": t(par.pA_arr), "pB": t(par.pB_arr),
+            "invMAk": t(par.invMAk), "invMA_B": t(par.invMA_B),
+            "invMBj": t(par.invMBj), "MB_A": t(par.MB_A),
+            "W1": f(par.W1), "W2": f(par.W2), "W16A": f(par.W16A),
+            "W16B": f(par.W16B), "Wbin": f(par.Wbin),
+            # the flat u32 vector the CUDA kernel reads
+            "flat32": torch.as_tensor(par.const_vector().astype(np.int32), device=device),
+        }
+        _DEV_CACHE[key] = hit
+    return hit
+
+
+@dataclasses.dataclass
+class RnsCtx:
+    """Per-modulus constants for a batch of moduli: one int64 row per
+    modulus, batch dims leading, in the layout K1 reads:
+
+        [cA (K) | N_B (Kp) | N_r] [monA | monB | mon_r] [r2A | r2B | r2_r]
+
+    cA = (-N^{-1}) * invMAk mod pA (the two first-step factors folded),
+    mon = MA mod N (the Montgomery one), r2 = MA^2 mod N."""
+
+    params_nbits: int
+    rows: torch.Tensor            # [..., 3*CH] int64
+
+    @property
+    def batch_shape(self):
+        return tuple(self.rows.shape[:-1])
+
+    def map_batch(self, fn) -> "RnsCtx":
+        """Apply a batch-axis transform (take/tile/expand/reshape)."""
+        return RnsCtx(self.params_nbits, fn(self.rows))
+
+    @classmethod
+    def from_ints(cls, ns, nbits: int, device=None) -> "RnsCtx":
+        from ..device import resolve_device
+
+        device = resolve_device(device)
+        par = RnsParams(nbits)
+        ns = np.asarray(ns, dtype=object)
+        flat = ns.reshape(-1).tolist()
+        rows = np.empty((len(flat), 3 * par.CH), dtype=np.int64)
+        for i, nv in enumerate(flat):
+            nv = int(nv)
+            cA = [(-pow(nv, -1, p)) % p * int(ik) % p
+                  for p, ik in zip(par.pA, par.invMAk)]
+            N_B = [nv % p for p in par.pB]
+            rows[i, :par.CH] = cA + N_B + [nv % P_R]
+            rows[i, par.CH:2 * par.CH] = par.to_residues(par.MA % nv)
+            rows[i, 2 * par.CH:] = par.to_residues((par.MA * par.MA) % nv)
+        rows = rows.reshape(ns.shape + (3 * par.CH,))
+        return cls(nbits, torch.as_tensor(rows, device=device))
+
+
+def split_value(v, par: RnsParams):
+    """[..., CH] residues -> (A [..., K], B [..., Kp], r [...])."""
+    K, Kp = par.K, par.Kp
+    return v[..., :K], v[..., K:K + Kp], v[..., K + Kp]
+
+
+def ctx_parts(rows, par: RnsParams) -> dict:
+    CH, K, Kp = par.CH, par.K, par.Kp
+    blk = lambda i: rows[..., i * CH:(i + 1) * CH]
+    c = blk(0)
+    return {
+        "cA": c[..., :K], "N_B": c[..., K:K + Kp], "N_r": c[..., K + Kp],
+        "mon": blk(1), "r2": blk(2),
+    }
+
+
+def _dot(xi, W):
+    """Exact sum_k xi[..., k] * W[k, j] (float64: terms < 2^32, sums < 2^53)."""
+    return torch.matmul(xi.to(torch.float64), W).to(torch.int64)
+
+
+def rns_montmul(x, y, cp: dict, cs: dict, par: RnsParams):
+    """x*y*MA^{-1} mod N on [..., CH] residue tensors (result < lam*N,
+    canonical channels).  cp: ctx_parts of the moduli; cs: dev_consts."""
+    xA, xB, xr = split_value(x, par)
+    yA, yB, yr = split_value(y, par)
+    pA, pB = cs["pA"], cs["pB"]
+    # q = -s N^{-1} mod MA, folded with invMAk: xi = s * cA
+    xi = (xA * yA % pA) * cp["cA"] % pA
+    sB = xB * yB % pB
+    sr = (xr * yr) & 0xFFFF
+    # approximate extension A -> B | r
+    ext = _dot(xi, cs["W1"])
+    qhB = ext[..., :par.Kp] % pB
+    qh_r = ext[..., par.Kp] & 0xFFFF
+    # t = (s + q_hat N) / MA in base B and channel r
+    num = (sB + qhB * cp["N_B"] % pB) % pB
+    tB = num * cs["invMA_B"] % pB
+    t_r = ((((sr + qh_r * cp["N_r"]) & 0xFFFF) * par.invMA_r) & 0xFFFF)
+    # exact extension B -> A via channel r
+    xi2 = tB * cs["invMBj"] % pB
+    ext2 = _dot(xi2, cs["W2"])
+    sum_r = ext2[..., par.K] & 0xFFFF
+    alpha = (((sum_r - t_r) & 0xFFFF) * par.invMB_r) & 0xFFFF
+    tA_raw = ext2[..., :par.K] % pA
+    corr = alpha[..., None] * cs["MB_A"] % pA
+    tA = (tA_raw - corr) % pA
+    return torch.cat([tA, tB, t_r[..., None]], dim=-1)
+
+
+def rns_from_mont_cols(acc, cp: dict, cs: dict, par: RnsParams):
+    """Montgomery-form residues -> exact binary column sums [..., Lout]:
+    strip MA (montmul by the integer 1), then v = sum_k xi_k (MA/p_k)."""
+    one = torch.ones_like(acc)
+    res = rns_montmul(acc, one, cp, cs, par)
+    xi = res[..., :par.K] * cs["invMAk"] % cs["pA"]
+    return _dot(xi, cs["Wbin"])
+
+
+@dataclasses.dataclass
+class RnsLazy:
+    """A dispatched-but-undecoded modexp: `parts` holds the device column
+    sums [lead, Lout]; ints() runs the exact host decode.  `mults` are plain
+    factors folded into the decode loop."""
+
+    parts: tuple
+    shape: tuple
+    n_b: np.ndarray
+    MA: int
+    mults: tuple = ()
+
+    def ints(self) -> np.ndarray:
+        return _rns_decode(self.parts, self.shape, self.n_b, self.MA, self.mults)
+
+
+def rns_exp_dispatch(ctx: RnsCtx, n_ints, base_ints, exp_ints, ebits: int,
+                     reduce_axis0: bool = False) -> RnsLazy:
+    """Launch x^e mod n via RNS Montgomery; returns an RnsLazy handle.
+    The exponentiation is K1 (core/pallas_rns.py) on the card and its plain
+    version on the CPU."""
+    from . import pallas_rns
+
+    return pallas_rns.exp_dispatch(ctx, n_ints, base_ints, exp_ints, ebits,
+                                   reduce_axis0=reduce_axis0)
+
+
+def _rns_decode(parts, shape, n_b, MA, mults=()) -> np.ndarray:
+    """Column sums (< K*2^32 each) -> object ints (v mod MA) mod n."""
+    from ..device import to_numpy
+    from .limbs import batch_from_limbs
+
+    cols = to_numpy(parts[0]).astype(np.int64)
+    Lout = cols.shape[-1]
+    flat = cols.reshape(-1, Lout)
+    canon = np.zeros((flat.shape[0], Lout + 3), dtype=np.int64)
+    carry = np.zeros(flat.shape[0], dtype=np.int64)
+    for c in range(Lout):
+        v = flat[:, c] + carry
+        canon[:, c] = v & 0xFFFF
+        carry = v >> 16
+    for c in range(Lout, Lout + 3):
+        canon[:, c] = carry & 0xFFFF
+        carry >>= 16
+    v_ints = batch_from_limbs(canon)
+    out = np.empty(flat.shape[0], dtype=object)
+    flat_n = np.asarray(n_b, dtype=object).reshape(-1)
+    fl_m = [np.broadcast_to(np.asarray(m, dtype=object), shape).reshape(-1)
+            for m in mults]
+    for i in range(flat.shape[0]):
+        nv = int(flat_n[i])
+        v = (int(v_ints[i]) % MA) % nv
+        for fm in fl_m:
+            v = v * int(fm[i]) % nv
+        out[i] = v
+    return out.reshape(shape) if shape else out[0]

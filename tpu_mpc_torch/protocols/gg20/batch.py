@@ -1,0 +1,365 @@
+"""GG20 {t,n}-threshold ECDSA signing, session-batched
+(port of tpu_mpc/protocols/gg20/batch.py: the signing path).
+
+  offline  6 rounds: MtA with Alice range proofs, T_i Pedersen commitments,
+           R / R_bar + PDLwSlack, S_i + HomoElGamal consistency
+  online   1 round: s_i broadcast
+
+Per-check boolean masks fold onto the culpable party like the reference's
+ErrorType { error_type, bad_actors }.  Keygen, blame, key refresh and the
+fault-injection seams of the reference wait for later slices.
+
+Configuration of this slice: no fixed-base tables (ring-Pedersen products
+through ModCtx.pow_prod), uniform encryption randomizers, cross-session
+batch verification on at S >= 8 (zk/batch_verify.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ...core.limbs import batch_from_limbs
+from ...device import resolve_device, to_numpy
+from ...ec import secp256k1 as dec
+from ...hashes.fiat_shamir import commit_rows, point_hash_ints
+from ...host import ec as hec
+from ...mta import mta
+from ...paillier import paillier as dp
+from ...utils.rng import SessionRng
+from ...vss import feldman
+from ...zk import sigma
+from ...zk.batch_verify import alice_verify_fast, pdl_slack_verify_fast
+from ...zk.pdl_slack import PDLwSlackStatementBatch, pdl_slack_prove
+from ...zk.range_proofs import DlogStatementBatch, PaillierCtxBatch, alice_prove
+from ..gg18.batch import _dk_take, _sc
+
+Q = hec.N
+SECURITY = 256
+
+
+@dataclasses.dataclass
+class LocalKeyBatch20:
+    S: int
+    t: int
+    n: int
+    paillier_bits: int
+    p: np.ndarray
+    q: np.ndarray
+    ek: PaillierCtxBatch          # [S, n]
+    dk: dp.BatchDecryptionKey
+    dlog_stmt: DlogStatementBatch  # [S, n] (h1, h2, N_tilde per party)
+    u: np.ndarray
+    x: np.ndarray
+    y: dec.Point
+    y_i: dec.Point
+    vss: feldman.VssSchemeBatch
+
+    @property
+    def device(self):
+        return self.ek.n_ctx.device
+
+
+def _ints(v) -> np.ndarray:
+    """Nested lists of ints or decimal strings -> object int array."""
+    return np.vectorize(int, otypes=[object])(np.asarray(v, dtype=object))
+
+
+def _tuplify(v):
+    """JSON point lists ([x, y] leaves, ints or strings; None = infinity)
+    -> the (x, y)-tuple leaves points_from_host takes."""
+    if v is None:
+        return None
+    if isinstance(v, (list, tuple)) and len(v) == 2 and isinstance(v[0], (int, str)):
+        return (int(v[0]), int(v[1]))
+    return [_tuplify(e) for e in v]
+
+
+def _host_points(P):
+    """Limb arrays of a Jacobian point batch (any array type with
+    np.asarray) -> nested affine tuples, computed with python ints."""
+    X, Y, Z = (np.asarray(batch_from_limbs(np.asarray(c)), dtype=object) for c in P)
+    out = np.empty(X.shape, dtype=object).reshape(-1)
+    for i, (x, y, z) in enumerate(zip(X.reshape(-1), Y.reshape(-1), Z.reshape(-1))):
+        x, y, z = int(x), int(y), int(z)
+        if z % hec.P == 0:
+            out[i] = None
+        else:
+            zi = pow(z, -1, hec.P)
+            out[i] = (x * zi * zi % hec.P, y * zi * zi * zi % hec.P)
+    return out.reshape(X.shape).tolist()
+
+
+def key_from_material(src, device=None) -> LocalKeyBatch20:
+    """The port's LocalKeyBatch20 from the reference's key material: either
+    the plain-int dict of benches/bench_key_2048.json / tests/fixtures/
+    gg20key_*.json (ints or decimal strings; S defaults to 1), or a
+    tpu_mpc LocalKeyBatch20 object (read through its numpy-convertible
+    fields).  Builds every device context on `device` (default "cuda")."""
+    dev = resolve_device(device)
+    if isinstance(src, dict):
+        d = src
+        S, t, n, bits = d.get("S", 1), d["t"], d["n"], d["bits"]
+        p, q = _ints(d["p"]), _ints(d["q"])
+        nt, h1, h2 = _ints(d["nt"]), _ints(d["h1"]), _ints(d["h2"])
+        u, x = _ints(d["u"]), _ints(d["x"])
+        y_i_h, vss_h = _tuplify(d["y_i"]), _tuplify(d["vss"])
+    else:
+        S, t, n, bits = src.S, src.t, src.n, src.paillier_bits
+        p, q = _ints(src.p), _ints(src.q)
+        st = src.dlog_stmt
+        nt, h1, h2 = _ints(st.ctx.n_ints), _ints(st.h1), _ints(st.h2)
+        u, x = _ints(src.u), _ints(src.x)
+        y_i_h, vss_h = _host_points(src.y_i), _host_points(src.vss.commitments)
+    y_i = dec.points_from_host(y_i_h, dev)
+    return LocalKeyBatch20(
+        S=S, t=t, n=n, paillier_bits=bits, p=p, q=q,
+        ek=PaillierCtxBatch.from_ints(p * q, bits, dev).attach_sk(p, q),
+        dk=dp.BatchDecryptionKey.from_ints(p, q, bits),
+        dlog_stmt=DlogStatementBatch.from_ints(nt, h1, h2, bits, dev),
+        u=u, x=x, y=dec.point_sum(y_i, axis=1), y_i=y_i,
+        vss=feldman.VssSchemeBatch(t=t, n=n, commitments=dec.points_from_host(vss_h, dev)),
+    )
+
+
+def tile_key(key1: LocalKeyBatch20, S: int) -> LocalKeyBatch20:
+    """Broadcast a 1-session key batch across S sessions (the serving
+    pattern of one signer group)."""
+    tile_np = lambda a: np.broadcast_to(a, (S,) + a.shape[1:]).copy()
+    tile_pt = lambda P: dec.Point(*(c.expand((S,) + tuple(c.shape[1:])) for c in P))
+    return LocalKeyBatch20(
+        S=S, t=key1.t, n=key1.n, paillier_bits=key1.paillier_bits,
+        p=tile_np(key1.p), q=tile_np(key1.q),
+        ek=key1.ek.tile(S), dk=key1.dk.map(tile_np),
+        dlog_stmt=key1.dlog_stmt.tile(S),
+        u=tile_np(key1.u), x=tile_np(key1.x),
+        y=tile_pt(key1.y), y_i=tile_pt(key1.y_i),
+        vss=feldman.VssSchemeBatch(t=key1.vss.t, n=key1.vss.n,
+                                   commitments=tile_pt(key1.vss.commitments)),
+    )
+
+
+def _peer_idx(tp: int):
+    """Rotation packing for the off-diagonal pair layout: slot (i, kk) is
+    the pair (alice i, bob peers[i, kk] = (i+1+kk) mod tp); iinv is the
+    inverse map: peers[iinv[j, kk], kk] == j."""
+    peers = np.asarray([[(i + 1 + kk) % tp for kk in range(tp - 1)] for i in range(tp)])
+    iinv = np.asarray([[(j - 1 - kk) % tp for kk in range(tp - 1)] for j in range(tp)])
+    return peers, iinv
+
+
+def _unpack_dense(packed: np.ndarray, peers: np.ndarray, fill) -> np.ndarray:
+    """Packed [S, tp, tp-1] -> dense [S, alice, bob] with `fill` diagonal."""
+    S_, tp = packed.shape[0], packed.shape[1]
+    dense = np.full((S_, tp, tp), fill, dtype=object)
+    for i in range(tp):
+        for kk in range(tp - 1):
+            dense[:, i, peers[i, kk]] = packed[:, i, kk]
+    return dense
+
+
+@dataclasses.dataclass
+class OfflineState:
+    """CompletedOfflineStage analog + blame inputs."""
+
+    s_parties: list[int]
+    R: dec.Point                  # [S]
+    r_x: np.ndarray               # [S]
+    k: np.ndarray                 # [S, tp] (secret)
+    sigma_i: np.ndarray           # [S, tp] (secret)
+    delta_i: np.ndarray
+    y: dec.Point
+    ok: np.ndarray                # [S]
+    bad_actors: np.ndarray        # [S, tp]
+    k_randomness: np.ndarray      # [S, tp]
+    gamma: np.ndarray
+    beta_g: np.ndarray            # [S, alice, bob]
+    beta_randomness: np.ndarray
+    beta_tag: np.ndarray
+    alpha: np.ndarray
+    msg_a_c: np.ndarray           # [S, tp] k ciphertexts
+    msg_b_gamma_c: np.ndarray     # [S, alice, bob]
+    R_bar: dec.Point              # [S, tp]
+    S_i: dec.Point                # [S, tp]
+    T_i: dec.Point
+    l_i: np.ndarray
+    m_b_w_c: np.ndarray = None
+    miu: np.ndarray = None
+    ni: np.ndarray = None
+    debug_masks: dict = None
+    g_gamma_decommit: dec.Point = None
+
+    def scrub(self) -> None:
+        """Zeroize the one-time secrets in place after a successful sign."""
+        from ...utils.ct import scrub_array
+
+        scrub_array(self.k, self.sigma_i, self.delta_i, self.k_randomness, self.gamma,
+                    self.beta_g, self.beta_randomness, self.beta_tag, self.alpha,
+                    self.miu, self.ni, self.l_i)
+
+
+def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -> OfflineState:
+    """Rounds 0-6 of GG20 signing (message-independent offline phase)."""
+    S = key.S
+    tp = len(s_parties)
+    dev = key.device
+    sc = lambda v: _sc(v, dev)
+
+    lam = np.asarray([feldman.lagrange_coeff(i, s_parties) for i in s_parties], dtype=object)
+    x_s = key.x[:, s_parties]
+    w = np.mod(x_s * lam[None, :], Q)
+    g_w = dec.mul_generator(sc(w))
+    k = rng.scalars((S, tp))
+    gamma = rng.scalars((S, tp))
+    g_gamma = dec.mul_generator(sc(gamma))
+
+    blind1 = rng.bits(SECURITY, (S, tp))
+    gg_ints = point_hash_ints(g_gamma)
+    com1 = commit_rows(gg_ints, blind1)
+
+    ek_s = key.ek.take(s_parties, 1)
+    stmt_s = key.dlog_stmt.take(s_parties, 1)         # [S, tp]
+    # MessageA: alice i encrypts k_i, proving range to each peer j's stmt
+    r_a = rng.below(np.broadcast_to(ek_s.n, (S, tp)), (S, tp))
+    # off-diagonal packed pair layout [S, alice, tp-1]
+    peers, iinv = _peer_idx(tp)
+    kidx = np.broadcast_to(np.arange(tp - 1), (tp, tp - 1))
+    stmt_peers = stmt_s.take(peers, 1)                # [S, alice, tp-1]
+    ek_alice_pairs = ek_s.expand(2)                   # [S, tp, 1]
+
+    c_a = mta.paillier_encrypt_ints(ek_s, k, r_a)     # [S, tp]
+    alice_proofs = alice_prove(k[:, :, None], c_a[:, :, None], ek_alice_pairs, stmt_peers,
+                               r_a[:, :, None], rng)
+
+    # MessageB (bob j responds to alice i) — both responder paths (gamma and
+    # w) ride one stacked [2, ...] call
+    pshape = (S, tp, tp - 1)
+    c_a_pairs = np.broadcast_to(c_a[:, :, None], pshape)
+    alice_ok = alice_verify_fast(alice_proofs, c_a_pairs, ek_alice_pairs, stmt_peers)
+    b_stack = np.stack([gamma[:, peers], w[:, peers]])
+    msg_b2, beta2, beta_rand2, beta_tag2, _ = mta.message_b(
+        b_stack, ek_alice_pairs, c_a_pairs, None, None, rng)
+    beta_g, beta_w = beta2[0], beta2[1]
+    beta_tag = beta_tag2[0]
+    msg_b_gamma = mta.msg_b_index(msg_b2, 0)
+    msg_b_w = mta.msg_b_index(msg_b2, 1)
+
+    dk_s = mta.expand_tree_axis(_dk_take(key.dk, s_parties, 1), 2)
+    a_pairs = np.broadcast_to(k[:, :, None], pshape)
+    alpha2, alpha_raw2, ok2 = mta.verify_proofs_get_alpha(
+        dk_s, msg_b2, a_pairs[None], (2,) + pshape, ek_sk=ek_alice_pairs)
+    alpha, miu = alpha2[0], alpha2[1]
+    alpha_raw, miu_raw = alpha_raw2[0], alpha_raw2[1]
+    ok_a, ok_m = ok2[0], ok2[1]
+    # MtAwc check: bob's w commitment must match g_w_j
+    gw_peers = dec.point_take(g_w, peers, 1)
+    gwc = to_numpy(dec.point_eq(msg_b_w.b_proof.pk, gw_peers))
+    mta_ok = (ok_a & ok_m & gwc)[:, iinv, kidx].all(axis=2)   # [S, bob]
+
+    kg = np.mod(k * gamma, Q)
+    kw = np.mod(k * w, Q)
+    delta_i = np.mod(kg + np.sum(alpha, axis=2) + np.sum(beta_g[:, iinv, kidx], axis=2), Q)
+    sigma_i = np.mod(kw + np.sum(miu, axis=2) + np.sum(beta_w[:, iinv, kidx], axis=2), Q)
+
+    # phase 3: T_i = sigma_i G + l_i H2 + Pedersen proof
+    l_i = rng.scalars((S, tp))
+    ped = sigma.pedersen_prove(sc(sigma_i), sc(l_i), rng)
+    T_i = ped.T
+    ped_ok = sigma.pedersen_verify(ped)
+
+    # phase 3-4: delta reconstruction, decommit gamma, R
+    delta = np.mod(np.sum(delta_i, axis=1), Q)
+    delta_inv = np.asarray([pow(int(d), -1, Q) if int(d) else 0 for d in delta], dtype=object)
+    com_ok = commit_rows(gg_ints, blind1) == com1
+    gg_peers = dec.point_take(g_gamma, peers, 1)
+    pk_ok = to_numpy(dec.point_eq(msg_b_gamma.b_proof.pk, gg_peers))[:, iinv, kidx].all(axis=2)
+    gamma_sum = dec.point_sum(g_gamma, axis=1)
+    R = dec.scalar_mul(sc(delta_inv), gamma_sum)
+    r_x = np.asarray(batch_from_limbs(dec.x_coord_mod_q(R)), dtype=object)
+
+    # phase 5: R_bar = k_i R + PDLwSlack to each peer
+    R_pairs = dec.point_expand(R, 1)
+    R_bar = dec.scalar_mul(sc(k), R_pairs)           # [S, tp]
+    pdl_stmt = PDLwSlackStatementBatch(
+        ciphertext=np.broadcast_to(c_a[:, :, None], pshape),
+        ek=ek_alice_pairs,
+        Q_pt=dec.point_expand(R_bar, 2),
+        G_pt=dec.point_expand(R_pairs, 2),
+        dlog=stmt_peers,
+    )
+    pdl_proofs = pdl_slack_prove(np.broadcast_to(k[:, :, None], pshape),
+                                 np.broadcast_to(r_a[:, :, None], pshape), pdl_stmt, rng)
+    pdl_ok = pdl_slack_verify_fast(pdl_proofs, pdl_stmt)  # [S, alice, tp-1]
+
+    # phase5_check_R_dash_sum: sum R_bar == G
+    rb_sum = dec.point_sum(R_bar, axis=1)
+    rdash_ok = to_numpy(dec.point_eq(rb_sum, dec.generator((S,), dev)))
+
+    # phase 6: S_i = sigma_i R + HomoElGamal consistency
+    S_i = dec.scalar_mul(sc(sigma_i), R_pairs)
+    H2, G = dec.base_point2((S, tp), dev), dec.generator((S, tp), dev)
+    heg = sigma.homo_elgamal_prove(sc(l_i), sc(sigma_i), R_pairs, H2, G, T_i, S_i, rng)
+    heg_ok = sigma.homo_elgamal_verify(heg, R_pairs, H2, G, T_i, S_i)
+    s_sum = dec.point_sum(S_i, axis=1)
+    s_sum_ok = to_numpy(dec.point_eq(s_sum, key.y))
+
+    per_party_ok = (alice_ok.all(axis=2) & pdl_ok.all(axis=2) & mta_ok & pk_ok
+                    & ped_ok & com_ok & heg_ok)  # [S, tp]
+    ok = per_party_ok.all(axis=1) & rdash_ok & s_sum_ok
+    debug_masks = {
+        "alice": alice_ok, "pdl": pdl_ok, "mta": mta_ok, "pk": pk_ok,
+        "ped": ped_ok, "com": com_ok, "heg": heg_ok,
+        "rdash": rdash_ok, "s_sum": s_sum_ok,
+    }
+    dense = lambda a, fill: _unpack_dense(np.asarray(a, dtype=object), peers, fill)
+    return OfflineState(
+        s_parties=s_parties, R=R, r_x=r_x, k=k, sigma_i=sigma_i, delta_i=delta_i,
+        y=key.y, ok=np.asarray(ok), bad_actors=~per_party_ok,
+        k_randomness=r_a, gamma=gamma, beta_g=dense(beta_g, 0),
+        beta_randomness=dense(beta_rand2[0], 1),
+        beta_tag=dense(beta_tag, 0), alpha=dense(alpha_raw, 0), msg_a_c=c_a,
+        msg_b_gamma_c=dense(msg_b_gamma.c, 0),
+        R_bar=R_bar, S_i=S_i, T_i=T_i, l_i=l_i,
+        m_b_w_c=dense(msg_b_w.c, 1), miu=dense(miu_raw, 0), ni=dense(beta_w, 0),
+        debug_masks=debug_masks, g_gamma_decommit=g_gamma,
+    )
+
+
+@dataclasses.dataclass
+class SignResult20:
+    r: np.ndarray
+    s: np.ndarray
+    recid: np.ndarray
+    ok: np.ndarray
+    sig_valid: np.ndarray
+    s_i: np.ndarray = None  # [S, tp] partial sigs
+
+
+def sign_online(off: OfflineState, m_int) -> SignResult20:
+    """Phase 7: one-round online signing.  Every signature is checked with
+    the pure-python ECDSA verifier (host/ec.py:ecdsa_verify)."""
+    S = off.k.shape[0]
+    m_arr = np.broadcast_to(np.asarray(m_int, dtype=object), (S,))
+    s_i = np.mod(np.mod(m_arr, Q)[:, None] * off.k + off.r_x[:, None] * off.sigma_i, Q)
+    s_sum = np.mod(np.sum(s_i, axis=1), Q)
+    _, ry_l, _ = dec.to_affine(off.R)
+    ry = np.asarray(batch_from_limbs(ry_l), dtype=object)
+    recid = np.empty(S, dtype=object)
+    s_final = np.empty(S, dtype=object)
+    for b in range(S):
+        sv = int(s_sum[b])
+        rec = (int(ry[b]) % Q) & 1
+        if sv > Q - sv:
+            sv = Q - sv
+            rec ^= 1
+        s_final[b] = sv
+        recid[b] = rec
+    y_host = dec.points_to_host(off.y)
+    sig_valid = np.asarray([
+        y_host[b] is not None
+        and hec.ecdsa_verify(y_host[b], int(m_arr[b]) % Q, int(off.r_x[b]), int(s_final[b]))
+        for b in range(S)
+    ])
+    ok = off.ok & sig_valid
+    return SignResult20(r=off.r_x, s=s_final, recid=recid, ok=ok, sig_valid=sig_valid, s_i=s_i)
