@@ -7,15 +7,20 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build   every CUDA kernel from tpu_mpc_torch/csrc/ (one nvcc per
              source, all started together) and print the build seconds;
-  2. check   every kernel against its plain PyTorch version on the card,
-             exactly (integers: tolerance 0), at the slice's shapes, with
-             samples against python pow() and the host EC oracle, and time
-             both (CUDA events);
+  2. check   every kernel (K1-K5) against its plain PyTorch version on the
+             card, exactly (integers: tolerance 0), at the slice's shapes,
+             with samples against python pow() and the host EC oracle, and
+             time both (CUDA events); K2's table builds are timed too;
   3. slice   GG20 2-of-3 signing at 2048-bit Paillier: the bench key
-             (benches/bench_key_2048.json) tiled to S = 128 sessions, one
-             warm-up and one timed pass of offline_stage + sign_online; every
-             signature must verify under the pure-python ECDSA verifier and
-             every kernel must have been launched in the timed pass.
+             (benches/bench_key_2048.json) tiled to S = 128 sessions, in both
+             configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
+             randomizer tables, the default on the card) and "uniform" (no
+             tables); one warm-up pass each, then timed passes of
+             offline_stage + sign_online in the order uniform, tables,
+             tables, uniform.  Every signature must verify under the
+             pure-python ECDSA verifier; every kernel must have been
+             launched in each tables pass, every kernel but K2 in each
+             uniform pass.
 Then it prints one JSON line {"kernels": [...]}, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  It imports nothing of jax or
 of the reference package tpu_mpc.
@@ -34,6 +39,7 @@ import time
 S_SESSIONS = 128
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
+K2_LANES = 256                       # S*tp*(tp-1)
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
 # arithmetic is 32x32-bit integer multiply-adds (IMAD, one each, widening or
@@ -179,6 +185,137 @@ def check_k1(dev, rnd):
     return entry
 
 
+def _odd_moduli(rnd, bits, n, par):
+    out = []
+    while len(out) < n:
+        v = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
+        if math.gcd(v, par.MA * par.MB) == 1:
+            out.append(v)
+    return out
+
+
+def check_k2(dev, rnd):
+    """K2 at the slice's shapes, exact against fixed_plain, samples against
+    python pow().  Cases: (a) 2048-bit h1/h2 pair, 256 lanes = S*tp*(tp-1),
+    group rows from the party batch [1, 2, 1], exponent classes (776, 3104)
+    of alice_prove's w commitment; (b) 4096-bit h mod N^2 at the randomizer
+    width (2112 -> class 2320), 256 lanes over two keys; (c) an explicit
+    gmap: 256 lanes over G = 3 groups of a 2048-bit g table at the folded
+    response width (class 2576).  Also times the table builds."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.modctx import ModCtx, ebits_class
+    from tpu_mpc_torch.core.rns import RnsLazy, RnsParams
+
+    lanes = K2_LANES
+    cases = []
+    builds = {}
+    # (a) h1/h2 of two parties, the [S, alice, peer] call against tables [1, 2, 1]
+    par = RnsParams(2048)
+    nt = np.asarray(_odd_moduli(rnd, 2048, 2, par), dtype=object)
+    h = np.asarray([[rnd.getrandbits(2048) % int(n) for n in nt] for _ in range(2)], dtype=object)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tabs = ModCtx.from_ints(nt, 2048, dev).make_tables_rns(h, 768 + 2048 + 16 + 160)
+    torch.cuda.synchronize()
+    builds["h1/h2 2048-bit, 2 bases x 2 keys"] = time.perf_counter() - t0
+    S = lanes // 2
+    e1 = np.asarray([[rnd.getrandbits(768) for _ in range(2)] for _ in range(S)], dtype=object)
+    e2 = np.asarray([[rnd.getrandbits(2816) for _ in range(2)] for _ in range(S)], dtype=object)
+    ctx = ModCtx.from_ints(nt.reshape(1, 2, 1), 2048, dev)     # the [S, alice, peer] batch
+    cases.append(("h1h2", 2048, ctx, [t.reshape(t.shape[0], 16, 1, 2, 1, -1) for t in tabs],
+                  [e1[:, :, None], e2[:, :, None]], (776, 3104), None,
+                  lambda i, j: (h[0, j], h[1, j], nt[j])))
+    # (b) h mod N^2 of two keys, randomizer width
+    par4 = RnsParams(4096)
+    nn = np.asarray(_odd_moduli(rnd, 4096, 2, par4), dtype=object)
+    ctx4 = ModCtx.from_ints(nn, 4096, dev)
+    hb = np.asarray([[rnd.getrandbits(4096) % int(n) for n in nn]], dtype=object)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab4 = ctx4.make_tables_rns(hb, 2048 + 64 + 256 + 8)
+    torch.cuda.synchronize()
+    builds["h mod N^2 4096-bit, 1 base x 2 keys"] = time.perf_counter() - t0
+    et = np.asarray([[rnd.getrandbits(2112) for _ in range(2)] for _ in range(S)], dtype=object)
+    cases.append(("h4096", 4096, ctx4, tab4, [et], (ebits_class(2112),), None,
+                  lambda i, j: (hb[0, j], None, nn[j])))
+    # (c) g tables of three keys behind an explicit gmap
+    ng = np.asarray(_odd_moduli(rnd, 2048, 3, par), dtype=object)
+    gb = np.asarray([[rnd.getrandbits(2048) % int(n) for n in ng]], dtype=object)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tabg = ModCtx.from_ints(ng, 2048, dev).make_tables_rns(gb, 2048 + 64 + 256 + 8)
+    torch.cuda.synchronize()
+    builds["g 2048-bit, 1 base x 3 keys"] = time.perf_counter() - t0
+    # the card's build (one squaring step replayed as a CUDA graph) equals
+    # the CPU's eager build residue for residue
+    ref = ModCtx.from_ints(ng, 2048, "cpu").make_tables_rns(gb, 2048 + 64 + 256 + 8)[0]
+    require(torch.equal(tabg[0].cpu(), ref), "K2 table built on the card != CPU build")
+    gmap = np.asarray([rnd.randrange(3) for _ in range(lanes)])
+    ctxg = ModCtx.from_ints(ng[gmap], 2048, dev)
+    eg = np.asarray([rnd.getrandbits(2376) for _ in range(lanes)], dtype=object)
+    cases.append(("gmap", 2048, ctxg, tabg, [eg], (ebits_class(2376),), gmap,
+                  lambda i, j: (gb[0, gmap[i]], None, ng[gmap[i]])))
+
+    worst, entry = 0, None
+    for name, bits, mc, T, exps, ebs, gm, ref in cases:
+        par = RnsParams(bits)
+        # the wrapper's inputs, exactly as fixed_prod_dispatch builds them
+        cap = {}
+        real = pr.fixed_call
+        pr.fixed_call = lambda *a: cap.setdefault("a", a) and real(*a)
+        try:
+            lz = pr.fixed_prod_dispatch(mc.rns_ctx(), mc.n_ints, T, exps, list(ebs), bits,
+                                        gmap=gm)
+        finally:
+            pr.fixed_call = real
+        e, grow, rows, tabs_k, nwins, woffs, _ = cap["a"]
+        out_k = lz.parts[0]
+        out_p = pr.fixed_plain(e, grow, rows, tabs_k, nwins, woffs, bits)
+        torch.cuda.synchronize()
+        err = _maxerr(out_k, out_p)
+        worst = max(worst, err)
+        require(err == 0, f"K2 {name}: kernel != plain (max |diff| {err})")
+        got = lz.ints().reshape(-1)
+        flat = [np.broadcast_to(x, lz.shape).reshape(-1) for x in exps]
+        for i in range(8):
+            j = i % 2
+            b1, b2, m = ref(i // 2 if name != "gmap" else i, j)
+            want = pow(int(b1), int(flat[0][i]), int(m))
+            if b2 is not None:
+                want = want * pow(int(b2), int(flat[1][i]), int(m)) % int(m)
+            require(int(got[i]) == want, f"K2 {name} lane {i} != python pow")
+        ms = _events_ms(lambda: pr.fixed_call(e, grow, rows, tabs_k, nwins, woffs, bits), 3)
+        pms = _events_ms(lambda: pr.fixed_plain(e, grow, rows, tabs_k, nwins, woffs, bits), 1)
+        B = e.shape[0]
+        mm = sum(nwins) + 1                    # one multiply per window, the decode's *1
+        per_mm = par.K * (par.Kp + 1) + par.Kp * (par.K + 1) + 7 * par.CH
+        imads = B * (mm * per_mm + par.K * par.Lout)
+        # table entries this run's digits touch (per base: window, digit, group)
+        touched = 0
+        for t_, nwin, woff in zip(tabs_k, nwins, woffs):
+            j = torch.arange(nwin, device=dev)
+            dig = (e[:, woff + j // 8] >> (4 * (j % 8))) & 15
+            key = (j * 16 + dig) * t_.shape[2] + grow[:, None]
+            touched += int(torch.unique(key).numel())
+        nbytes = (2 * touched * par.CH + 2 * rows.numel() + 4 * e.numel() + 4 * grow.numel()
+                  + 4 * pr.dev_consts(par, dev)["flat32"].numel() + 8 * B * par.Lout)
+        bms, bby = _bound(nbytes, imads)
+        log(f"K2 {name} {bits}b lanes={B} windows={nwins}: exact; kernel {ms:.3f} ms, "
+            f"plain {pms:.1f} ms, bound {bms:.4f} ms ({bby})")
+        if name == "h1h2":
+            entry = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         shape=f"{B} lanes, 2048-bit h1/h2 pair, exponent classes "
+                               f"{ebs[0]} + {ebs[1]}, G = 2")
+    for k, v in builds.items():
+        log(f"K2 table build {k}: {v:.2f} s")
+    entry["max_abs_err"] = worst
+    return entry
+
+
 def _rand_points(dev, rnd, B):
     """B canonical Jacobian points with Z != 1 (plain comb on the card)."""
     import numpy as np
@@ -304,45 +441,68 @@ def check_ec(dev, rnd):
 # phase 3: the slice
 # --------------------------------------------------------------------------
 
+ENC_ENV = "TPU_MPC_TORCH_ENC_TABLES"
+CONFIGS = {"uniform": "0", "tables": "1"}     # the value of ENC_ENV per configuration
+
+
 def run_slice(dev, repo, host_profile: bool = False):
+    """Both configurations of the slice on the bench key at S = 128: load
+    each key set (the tables one builds its h1/h2 and randomizer tables),
+    one warm-up pass each, then timed passes in the order uniform, tables,
+    tables, uniform.  Kernel counts are set to 0 just before each timed pass
+    and read just after it; the tables passes must launch all five kernels,
+    the uniform ones every kernel but K2."""
     import torch
 
     from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.ec import pallas_ec as pe
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
     from tpu_mpc_torch.utils.rng import SessionRng
 
     with open(os.path.join(repo, "benches", "bench_key_2048.json")) as f:
         d = json.load(f)
-    t0 = time.perf_counter()
-    key = gg20.tile_key(gg20.key_from_material(d, device=dev), S_SESSIONS)
-    log(f"slice: bench key loaded and tiled to S={S_SESSIONS} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    rng = SessionRng(0xC41B)
+    keys, rngs = {}, {}
+    for cfg, flag in CONFIGS.items():
+        os.environ[ENC_ENV] = flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key1 = gg20.key_from_material(d, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require((key1.dlog_stmt.tables_rns is not None) == (flag == "1")
+                and (key1.ek.enc_tab_h is not None) == (flag == "1"),
+                f"slice[{cfg}]: the key's tables do not match the configuration")
+        keys[cfg] = gg20.tile_key(key1, S_SESSIONS)
+        rngs[cfg] = SessionRng(0xC41B)
+        log(f"slice[{cfg}]: bench key loaded in {dt:.2f} s"
+            + (" (h1/h2 and randomizer tables built)" if flag == "1" else "")
+            + f", tiled to S={S_SESSIONS}")
 
-    def one_pass():
+    def one_pass(cfg):
+        os.environ[ENC_ENV] = CONFIGS[cfg]
         t = time.perf_counter()
-        off = gg20.offline_stage(key, [0, 1], rng)
+        off = gg20.offline_stage(keys[cfg], [0, 1], rngs[cfg])
         torch.cuda.synchronize()
         t_off = time.perf_counter() - t
         sig = gg20.sign_online(off, MSG)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        require(off.ok.all(), f"offline stage failed: {off.debug_masks}")
-        require(sig.sig_valid.all() and sig.ok.all(), "a signature failed to verify")
+        require(off.ok.all(), f"slice[{cfg}]: offline stage failed: {off.debug_masks}")
+        require(sig.sig_valid.all() and sig.ok.all(), f"slice[{cfg}]: a signature failed")
         return dt, t_off
 
-    dt, t_off = one_pass()
-    log(f"slice: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), {S_SESSIONS} signatures verify")
-    # device time of each kernel wrapper over the timed pass: CUDA events on
-    # the stream around every call (no extra synchronisation)
-    from tpu_mpc_torch.core import pallas_rns as pr
-    from tpu_mpc_torch.ec import pallas_ec as pe
+    for cfg in CONFIGS:
+        dt, t_off = one_pass(cfg)
+        log(f"slice[{cfg}]: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), "
+            f"{S_SESSIONS} signatures verify")
 
-    spans = {"K1": [], "K3": [], "K4": [], "K5": []}
-    patched = [(pr, "exp_call", "K1"), (pe, "ladder_call", "K3"),
+    # device time of each kernel wrapper over a timed pass: CUDA events on
+    # the stream around every call (no extra synchronisation)
+    patched = [(pr, "exp_call", "K1"), (pr, "fixed_call", "K2"), (pe, "ladder_call", "K3"),
                (pe, "comb_call", "K4"), (pe, "affine_call", "K5")]
 
-    def timed(fn, name):
+    def timed(fn, name, spans):
         def run(*a, **kw):
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
@@ -352,27 +512,36 @@ def run_slice(dev, repo, host_profile: bool = False):
             return out
         return run
 
-    saved = [(m, f, getattr(m, f)) for m, f, _ in patched]
-    for m, f, name in patched:
-        setattr(m, f, timed(getattr(m, f), name))
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    try:
-        dt, t_off = one_pass()
-    finally:
-        for m, f, fn in saved:
-            setattr(m, f, fn)
-    launches = dict(kernels.LAUNCHES)
-    busy = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    log("slice: kernel device time in the timed pass (ms) "
-        + json.dumps({k: round(v, 3) for k, v in busy.items()})
-        + f"; sum {sum(busy.values()):.1f} ms of {dt * 1e3:.1f} ms wall "
-        f"({100 * sum(busy.values()) / (dt * 1e3):.1f}%)")
-    log(f"slice: timed pass {dt:.2f} s (offline {t_off:.2f} s, online {dt - t_off:.2f} s), "
-        f"{S_SESSIONS / dt:.2f} sig/s, all {S_SESSIONS} signatures verify")
-    log(f"slice: kernel launches in the timed pass {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    require(not missing, f"kernels not launched on the main path: {missing}")
+    runs = []
+    for cfg in ("uniform", "tables", "tables", "uniform"):
+        spans = {name: [] for _, _, name in patched}
+        saved = [(m, f, getattr(m, f)) for m, f, _ in patched]
+        for m, f, name in patched:
+            setattr(m, f, timed(getattr(m, f), name, spans))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        try:
+            dt, t_off = one_pass(cfg)
+        finally:
+            for m, f, fn in saved:
+                setattr(m, f, fn)
+        launches = dict(kernels.LAUNCHES)
+        busy = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        runs.append((cfg, launches, busy, dt))
+        tot = sum(busy.values())
+        log(f"slice[{cfg}]: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
+            f"{dt - t_off:.2f} s), {S_SESSIONS / dt:.2f} sig/s, all {S_SESSIONS} signatures "
+            f"verify; kernel device time (ms) "
+            + json.dumps({k: round(v, 3) for k, v in busy.items()})
+            + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); launches "
+            + json.dumps(launches))
+        want = [k for k in launches if cfg == "tables" or k != "K2"]
+        missing = [k for k in want if launches[k] == 0]
+        require(not missing, f"slice[{cfg}]: kernels not launched on the main path: {missing}")
+        require(cfg == "tables" or launches["K2"] == 0, "slice[uniform]: K2 was launched")
+    for cfg in CONFIGS:
+        rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]
+        log(f"slice[{cfg}]: sig/s over its two timed passes " + ", ".join(f"{r:.2f}" for r in rates))
     if host_profile:
         import cProfile
         import io
@@ -380,12 +549,14 @@ def run_slice(dev, repo, host_profile: bool = False):
 
         prof = cProfile.Profile()
         prof.enable()
-        one_pass()
+        one_pass("tables")
         prof.disable()
         buf = io.StringIO()
         pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(30)
-        log("slice: host profile of one more pass (cProfile, by own time)\n" + buf.getvalue())
-    return launches, dt
+        log("slice[tables]: host profile of one more pass (cProfile, by own time)\n"
+            + buf.getvalue())
+    # the main path is the tables configuration: its first timed pass
+    return next(r[1] for r in runs if r[0] == "tables")
 
 
 def card_line() -> str:
@@ -430,13 +601,16 @@ def main() -> int:
     rnd = random.Random(20261016)
     t0 = time.perf_counter()
     k1 = check_k1(dev, rnd)
+    k2 = check_k2(dev, rnd)
     ec_res = check_ec(dev, rnd)
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
-    launches, _ = run_slice(dev, repo, host_profile="--host-profile" in sys.argv[1:])
+    launches = run_slice(dev, repo, host_profile="--host-profile" in sys.argv[1:])
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
+           "K2": ("tpu_mpc_torch/csrc/rns_fixed.cu",
+                  "tpu_mpc/core/pallas_rns.py:483 (_fixed_kernel)"),
            "K3": ("tpu_mpc_torch/csrc/ec_kernels.cu",
                   "tpu_mpc/ec/pallas_ec.py:329 (_ladder_kernel)"),
            "K4": ("tpu_mpc_torch/csrc/ec_kernels.cu",
@@ -444,7 +618,7 @@ def main() -> int:
            "K5": ("tpu_mpc_torch/csrc/ec_kernels.cu",
                   "tpu_mpc/ec/pallas_ec.py:477 (_affine_kernel)")}
     rows = []
-    for name, r in (("K1", k1), ("K3", ec_res["K3"]), ("K4", ec_res["K4"]),
+    for name, r in (("K1", k1), ("K2", k2), ("K3", ec_res["K3"]), ("K4", ec_res["K4"]),
                     ("K5", ec_res["K5"])):
         rows.append({
             "name": name, "route": "cuda", "source": src[name][0],

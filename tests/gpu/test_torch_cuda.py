@@ -36,6 +36,42 @@ def test_k1_equals_plain_and_pow(dev, bits):
     assert all(int(g) == pow(int(x), int(y), int(n)) for g, x, y, n in zip(got, b, e, ns))
 
 
+def test_k2_equals_plain_and_pow(dev):
+    """K2 over two bases of different exponent classes and G = 3 key groups,
+    against fixed_plain on the same CUDA inputs and python pow()."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.modctx import ModCtx
+
+    rnd = random.Random(2)
+    bits, G, S = 768, 3, 4
+    ns = np.asarray([[rnd.getrandbits(bits) | 1 | (1 << (bits - 1)) for _ in range(G)]],
+                    dtype=object)
+    h = np.asarray([[[rnd.getrandbits(bits) % int(n) for n in ns[0]]] for _ in range(2)],
+                   dtype=object)
+    e1 = np.asarray([[rnd.getrandbits(64) for _ in range(G)] for _ in range(S)], dtype=object)
+    e2 = np.asarray([[rnd.getrandbits(256) for _ in range(G)] for _ in range(S)], dtype=object)
+    mc = ModCtx.from_ints(ns, bits, dev)
+    tabs = mc.make_tables_rns(h, 256)
+    cap = {}
+    real = pr.fixed_call
+    pr.fixed_call = lambda *a: cap.setdefault("a", a) and real(*a)
+    try:
+        n0 = kernels.LAUNCHES["K2"]
+        got = mc.pow_fixed_prod_rns(tabs, [e1, e2], (64, 256))
+        assert kernels.LAUNCHES["K2"] == n0 + 1
+    finally:
+        pr.fixed_call = real
+    e, grow, rows, T, nwins, woffs, nbits = cap["a"]
+    assert torch.equal(real(e, grow, rows, T, nwins, woffs, nbits),
+                       pr.fixed_plain(e, grow, rows, T, nwins, woffs, nbits))
+    for s in range(S):
+        for g in range(G):
+            m = int(ns[0, g])
+            want = pow(int(h[0, 0, g]), int(e1[s, g]), m) * pow(int(h[1, 0, g]), int(e2[s, g]), m)
+            assert int(got[s, g]) == want % m
+
+
 def test_ec_kernels_equal_plain(dev):
     from tpu_mpc_torch.ec import pallas_ec as pe
     from tpu_mpc_torch.ec import secp256k1 as ec

@@ -9,7 +9,13 @@ that the forced cross-session batch verification (TPU_MPC_BATCH_VERIFY=1 on
 the reference side, TPU_MPC_TORCH_BATCH_VERIFY=1 on the port's) really
 takes the pow_prod_axis0 / reduce_axis0 path at S = 2.  The verifier's
 batching exponents come from os.urandom, not from SessionRng, so they do not
-change (r, s).  Both packages' runs happen once, in one test."""
+change (r, s).
+
+Two configurations, one case each, so that a test scheduler can place them
+on different workers: "uniform" (no fixed-base tables, uniform randomizers:
+TPU_MPC_ENC_TABLES=0 / TPU_MPC_TORCH_ENC_TABLES=0) and "tables" (h1/h2 and
+randomizer tables, the JAX package's default on an accelerator: both
+switches "1").  In each case both packages' runs happen once."""
 
 import hashlib
 import importlib.util
@@ -40,21 +46,28 @@ def _reference_key(d):
     return kc._decode(d)
 
 
-def _run_both(d):
-    """One run of each package on the same key, seed and message."""
+def _run_both(d, tables: bool):
+    """One run of each package on the same key, seed and message.  Records
+    the lead sizes of the axis-0 folds and the fixed-base products the
+    port's run launched."""
     from tpu_mpc_torch.core import pallas_rns as tpr
     from tpu_mpc_torch.protocols.gg20 import batch as tg
     from tpu_mpc_torch.utils.rng import SessionRng as TRng
 
     m = int.from_bytes(hashlib.sha256(b"gg20 message").digest(), "big")
-    reduced = []
+    reduced, fixed = [], []
+    flag = "1" if tables else "0"
     with pytest.MonkeyPatch.context() as mp:
         for k, v in (("TPU_MPC_BATCH_VERIFY", "1"), ("TPU_MPC_TORCH_BATCH_VERIFY", "1"),
-                     ("TPU_MPC_PALLAS", "0"), ("TPU_MPC_ENC_TABLES", "0")):
+                     ("TPU_MPC_PALLAS", "0"), ("TPU_MPC_ENC_TABLES", flag),
+                     ("TPU_MPC_TORCH_ENC_TABLES", flag)):
             mp.setenv(k, v)
         fin = tpr._finish_reduce
         mp.setattr(tpr, "_finish_reduce",
                    lambda *a, **kw: reduced.append(a[4]) or fin(*a, **kw))
+        fpd = tpr.fixed_prod_dispatch
+        mp.setattr(tpr, "fixed_prod_dispatch",
+                   lambda *a, **kw: fixed.append(a[5]) or fpd(*a, **kw))
         tkey = tg.key_from_material(d, device="cpu")
         toff = tg.offline_stage(tkey, [0, 1], TRng(SEED))
         tsig = tg.sign_online(toff, m)
@@ -63,19 +76,23 @@ def _run_both(d):
         from tpu_mpc.utils.rng import SessionRng as JRng
 
         jkey = _reference_key(d)
+        # the reference's keygen builds the randomizer tables (batch.py:191);
+        # its offline_stage builds only the h1/h2 ones
+        jkey.ek.ensure_enc_tables()
         joff = jg.offline_stage(jkey, [0, 1], JRng(SEED))
         jsig = jg.sign_online(joff, m)
-    return toff, tsig, joff, jsig, reduced, m
+    return toff, tsig, joff, jsig, reduced, fixed, m, tkey
 
 
-def test_slice_signatures_equal_reference_and_verify():
-    """The one test that runs the reference's offline_stage (minutes on the
-    CPU): every assertion about the slice reads from this single run, so
-    that no test scheduler splits it across processes."""
+@pytest.mark.parametrize("tables", [False, True], ids=["uniform", "tables"])
+def test_slice_signatures_equal_reference_and_verify(tables):
+    """The test that runs the reference's offline_stage (minutes on the
+    CPU), once per configuration: every assertion about the slice reads from
+    that single run."""
     from tpu_mpc_torch.ec import secp256k1 as tec
     from tpu_mpc_torch.host import ec as hec
 
-    toff, tsig, joff, jsig, reduced, m = _run_both(_key_dict())
+    toff, tsig, joff, jsig, reduced, fixed, m, tkey = _run_both(_key_dict(), tables)
     # (r, s, recid) bit for bit
     assert [int(v) for v in tsig.r] == [int(v) for v in jsig.r]
     assert [int(v) for v in tsig.s] == [int(v) for v in jsig.s]
@@ -95,6 +112,28 @@ def test_slice_signatures_equal_reference_and_verify():
     # batch verification took the axis-0 product: alice_verify_fast and
     # pdl_slack_verify_fast, five products each, over the S sessions
     assert len(reduced) >= 10 and set(reduced) == {S}
+    if not tables:
+        assert not fixed and toff.k_randomness.shape == (S, 2)
+        return
+    # the fixed-base path carried every ring-Pedersen product and r^N: per
+    # pass 4 N^2 products (r_a^N, alice's beta^N, Bob's r^N, PDL's beta^N)
+    # and 8 N-width ones (alice z, w, s, its batched check; PDL z, u3, s2,
+    # its batched check)
+    nbits = tkey.paillier_bits
+    assert sorted(fixed) == [nbits] * 8 + [2 * nbits] * 4
+    # the randomizers stayed deferred launches; resolved, they equal the
+    # reference's, and r_a encrypts k to msg_a_c
+    r_a = toff.k_randomness.ints()
+    assert np.array_equal(np.asarray(r_a, dtype=object),
+                          np.asarray(joff.k_randomness.ints(), dtype=object))
+    assert np.array_equal(np.asarray(toff.beta_randomness.ints(), dtype=object),
+                          np.asarray(joff.beta_randomness.ints(), dtype=object))
+    n = tkey.ek.take([0, 1], 1).n
+    for b in range(S):
+        for i in range(2):
+            nv = int(n[b, i])
+            c = (1 + int(toff.k[b, i]) * nv) * pow(int(r_a[b, i]), nv, nv * nv) % (nv * nv)
+            assert c == int(toff.msg_a_c[b, i])
 
 
 def test_key_loader_takes_reference_objects():

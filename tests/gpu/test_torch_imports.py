@@ -68,7 +68,10 @@ def test_kernel_build_targets_hopper():
         assert os.path.exists(os.path.join(kernels.CSRC, src))
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert kernels.BUILD_DIR == os.path.join(REPO, "build", "tpu_mpc_torch")
-    assert set(kernels.LAUNCHES) == {"K1", "K3", "K4", "K5"}
+    assert set(kernels.LAUNCHES) == {"K1", "K2", "K3", "K4", "K5"}
+    # K1 and K2 share the Montgomery multiply's header: editing it rebuilds both
+    assert "rns_field.cuh" in kernels.SOURCES["rns"][1]
+    assert "rns_field.cuh" in kernels.SOURCES["rns_fixed"][1]
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
@@ -82,6 +85,10 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     m = lambda *shape: torch.zeros(shape, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="K1"):
         pallas_rns.exp_call(m(4, 16), m(4, 8), m(1, 3 * 37), 256)
+    with pytest.raises(ValueError, match="K2"):
+        pallas_rns.fixed_call(m(4, 2), m(4), m(1, 3 * 38),
+                              [torch.zeros((4, 16, 1, 38), dtype=torch.int32, device="meta")],
+                              [4], [0], 256)
     with pytest.raises(ValueError, match="K3"):
         pallas_ec.ladder_call(m(4, 1, 3, 16), m(4, 2, 33), m(4, 2))
     with pytest.raises(ValueError, match="K4"):

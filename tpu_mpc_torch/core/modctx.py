@@ -12,6 +12,9 @@ Two decisions of the port:
   kernel on the card, its plain PyTorch version on the CPU.  The
   reference's CIOS limb path (montgomery.mont_exp*) is not carried over at
   Paillier widths.
+* Fixed-base products (make_tables_rns / pow_fixed_prod_rns) are K2, from
+  window tables built once per long-lived base; the reference's CIOS table
+  path (make_tables / pow_fixed_prod) is not carried over.
 * Multi-base pow_prod stacks its bases on a new leading axis, runs ONE K1
   launch over them, and folds the product and the `mults` on the host with
   host_mulmod.  The integers equal mont_exp_prod's.  (The reference runs a
@@ -95,6 +98,22 @@ class LazyMap:
 
     def ints(self):
         return self.fn(resolve(self.src))
+
+
+@dataclasses.dataclass
+class DeferredLaunch:
+    """A launch that has NOT been dispatched: .ints() dispatches on first
+    use and caches.  Holds values only rare paths need (e.g. the MtA
+    responder's encryption randomness r = g^t, revealed only on blame): the
+    honest path never pays the launch."""
+
+    fn: object
+    _cache: object = None
+
+    def ints(self):
+        if self._cache is None:
+            self._cache = resolve(self.fn())
+        return self._cache
 
 
 def _take_t(t, indices, axis: int):
@@ -234,3 +253,24 @@ class ModCtx:
         ms = list(mults)
         out = LazyMap(lz, lambda v: host_mulmod(*(v[i] for i in range(kb)), *ms, n_b))
         return resolve(out) if sync else out
+
+    def make_tables_rns(self, bases, max_ebits: int) -> list:
+        """Fixed-base window tables of `bases` [k, ...batch] (core/rns.py:
+        rns_make_tables), wide enough for exponents below the class of
+        max_ebits: one int32 tensor [nw, 16, ...batch, CH] per base."""
+        from . import rns
+
+        return rns.rns_make_tables(self._rns, self.n_ints, np.asarray(bases, dtype=object),
+                                   ebits_class(max_ebits), self.bits)
+
+    def pow_fixed_prod_rns(self, tables, exps, ebits_hints, sync: bool = True, gmap=None):
+        """prod_i base_i^exps[i] mod n from make_tables_rns tables: zero
+        squarings, one K2 launch.  Exponent widths round up to their class.
+        gmap (optional): the flattened table-group row of each call element
+        (core/pallas_rns.py:fixed_prod_dispatch)."""
+        from . import rns
+
+        ebs = [ebits_class(max(h, 1)) for h in ebits_hints]
+        lz = rns.rns_fixed_prod_dispatch(self._rns, self.n_ints, tables, exps, ebs, self.bits,
+                                         gmap=gmap)
+        return resolve(lz) if sync else lz

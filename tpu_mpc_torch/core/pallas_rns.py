@@ -1,30 +1,46 @@
-"""K1, the fused RNS modexp kernel: wrapper, plain version and dispatch
+"""K1 and K2, the fused RNS kernels: wrappers, plain versions and dispatch
 (port of tpu_mpc/core/pallas_rns.py).
 
-K1 replaces tpu_mpc/core/pallas_rns.py:_exp_kernel; its CUDA source is
-csrc/rns_exp.cu (the source note there says what bounds it on the H100 and
-how the design answers).  exp_call launches it for CUDA tensors; for CPU
-tensors it takes exp_plain, the same function in PyTorch ops.  exp_plain is
-also what chip_smoke.py holds the kernel against, bit for bit.
+K1 (variable-base modexp) replaces tpu_mpc/core/pallas_rns.py:_exp_kernel;
+its CUDA source is csrc/rns_exp.cu.  K2 (fixed-base window product, zero
+squarings) replaces _fixed_kernel; its source is csrc/rns_fixed.cu.  Both
+run the one Montgomery multiply of csrc/rns_field.cuh; the source notes say
+what bounds them on the H100 and how the design answers.  exp_call and
+fixed_call launch them for CUDA tensors; for CPU tensors they take
+exp_plain and fixed_plain, the same functions in PyTorch ops, which are
+also what chip_smoke.py holds the kernels against, bit for bit.
 
 The reference's dispatch glue maps as follows: _pack_words is kept;
 _unpack_residues and _prep_x (binary -> residues, channel-major padding)
 are K1's prologue, which reads the base's 16-bit limbs directly; _prep_ctx
 and _ctx_blocks become RnsCtx rows and _ctx_blocks below; _planes_out is
-the kernel's exact column-sum output; _finish_reduce is below.
+the kernels' exact column-sum output; _finish_reduce is below.  K2's
+_prep_tables (per-call concatenation into channel-Montgomery bf16 chunks,
+cached by table identity) has no counterpart: the tables already lie on the
+device in the layout K2 reads, one pointer per base, and each lane reads its
+key group's row through `grow` (the TPU kernel's gofs / 16).  The TPU's
+G * 16 <= 512 cap was a VMEM limit and is gone: the tables stay in global
+memory.
 
-The fixed-base kernel K2 (_fixed_kernel) is not ported yet: this slice runs
-without fixed-base tables.
-
-Kernel I/O (lanes B, widths from core/rns.py:RnsParams):
+K1 I/O (lanes B, widths from core/rns.py:RnsParams):
   x     [B, Lin]   16-bit limbs of the base, already reduced mod N
   e     [B, ne2]   packed 32-bit exponent words (limb 2j in the low half)
   rows  [C, 3*CH]  RnsCtx rows, C = 1 (one modulus for all lanes) or B
   out   [B, Lout]  exact binary column sums (emit_planes) or
         [B, CH]    big-Montgomery residues (for the axis-0 product)
+
+K2 I/O:
+  e       [B, ne2]   every base's packed e-words, base after base
+  grow    [B]        the lane's key-group row g (0 <= g < G)
+  rows    [C, 3*CH]  as for K1
+  tables  per base [nw, 16, G, CH] int32 (core/rns.py:rns_make_tables)
+  nwins, woffs       per base: windows run, first e-word
+  out     [B, Lout]  exact binary column sums
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -32,7 +48,8 @@ import torch
 from .. import kernels
 from .limbs import batch_to_limbs, nlimbs
 from .rns import (
-    RnsLazy, RnsParams, ctx_parts, dev_consts, rns_from_mont_cols, rns_montmul,
+    WINDOW, RnsLazy, RnsParams, ctx_parts, dev_consts, rns_from_limbs, rns_from_mont_cols,
+    rns_montmul,
 )
 
 _NENT = 16
@@ -53,11 +70,7 @@ def exp_plain(x, e, rows, nbits: int, emit_planes: bool = True):
     cs = dev_consts(par, x.device)
     cp = ctx_parts(rows, par)
     B = x.shape[0]
-    xv = torch.cat([
-        torch.matmul(x.double(), cs["W16A"]).long() % cs["pA"],
-        torch.matmul(x.double(), cs["W16B"]).long() % cs["pB"],
-        (x[:, :1] & 0xFFFF),
-    ], dim=-1)
+    xv = rns_from_limbs(x, cs)
     mm = lambda a, b: rns_montmul(a, b, cp, cs, par)
     one = cp["mon"].expand(B, par.CH)
     xm = mm(xv, cp["r2"].expand(B, par.CH))
@@ -189,3 +202,113 @@ def exp_dispatch(ctx, n_ints, base_ints, exp_ints, ebits: int,
                        MA=par.MA)
     cols = exp_call(x, e, rows, nbits, emit_planes=True)
     return RnsLazy(parts=(cols,), shape=tuple(shape), n_b=n_b, MA=par.MA)
+
+
+# --------------------------------------------------------------------------
+# K2: fixed-base window product (zero squarings)
+# --------------------------------------------------------------------------
+
+_K2_MAX_BASES = 4   # csrc/rns_fixed.cu:MAX_BASES
+
+
+def fixed_plain(e, grow, rows, tables, nwins, woffs, nbits: int):
+    """The function K2 computes, in PyTorch ops (same values, any device):
+    for each base, windows j = 0 .. nwin-1 LSB-first, one Montgomery
+    multiply by T[j][digit][grow]; then the decode epilogue."""
+    par = RnsParams(nbits)
+    cs = dev_consts(par, e.device)
+    cp = ctx_parts(rows, par)
+    acc = cp["mon"].expand(e.shape[0], par.CH)
+    g = grow.long()
+    for T, nwin, woff in zip(tables, nwins, woffs):
+        for j in range(nwin):
+            d = (e[:, woff + j // 8] >> (WINDOW * (j % 8))) & (_NENT - 1)
+            acc = rns_montmul(acc, T[j, d, g].long(), cp, cs, par)
+    return rns_from_mont_cols(acc, cp, cs, par)
+
+
+def fixed_call(e, grow, rows, tables, nwins, woffs, nbits: int):
+    """K2 on CUDA tensors; the plain version on CPU tensors."""
+    if e.device.type == "cpu":
+        return fixed_plain(e, grow, rows, tables, nwins, woffs, nbits)
+    if e.device.type != "cuda" or any(t.device != e.device for t in (grow, rows, *tables)):
+        raise ValueError("K2: e, grow, rows and tables must lie on one CUDA device")
+    par = RnsParams(nbits)
+    B, ne2 = e.shape
+    G = tables[0].shape[2] if tables else 0
+    ok = (tuple(grow.shape) == (B,) and rows.shape[-1] == 3 * par.CH
+          and rows.shape[0] in (1, B) and 1 <= len(tables) <= _K2_MAX_BASES
+          and len(nwins) == len(woffs) == len(tables))
+    for T, nwin, woff in zip(tables, nwins, woffs):
+        ok = ok and (T.dtype == torch.int32 and T.dim() == 4
+                     and tuple(T.shape[1:]) == (_NENT, G, par.CH)
+                     and 0 <= nwin <= T.shape[0] and woff >= 0
+                     and woff + -(-nwin // 8) <= ne2)
+    if not ok:
+        raise ValueError(f"K2: bad shapes e{tuple(e.shape)} grow{tuple(grow.shape)} "
+                         f"rows{tuple(rows.shape)} tables{[tuple(t.shape) for t in tables]} "
+                         f"nwins{list(nwins)} woffs{list(woffs)} at {nbits} bits")
+    if B == 0:
+        return torch.empty((0, par.Lout), dtype=torch.int64, device=e.device)
+    lib = kernels.lib("rns_fixed")
+    cs = dev_consts(par, e.device)
+    # every converted input stays referenced until the launch is enqueued
+    e32, g32, r32 = _i32(e), _i32(grow), _i32(rows)
+    tabs = [T.contiguous() for T in tables]
+    n = len(tabs)
+    ptrs = (ctypes.c_uint64 * n)(*(T.data_ptr() for T in tabs))
+    cols = torch.empty((B, par.Lout), dtype=torch.int64, device=e.device)
+    rc = lib.k2_fixed(
+        e32.data_ptr(), ne2, g32.data_ptr(), r32.data_ptr(), int(rows.shape[0] != 1),
+        cs["flat32"].data_ptr(), B, par.K, par.Kp, par.Lin, par.Lout, par.invMA_r,
+        par.invMB_r, n, ptrs, (ctypes.c_int * n)(*nwins), (ctypes.c_int * n)(*woffs), G,
+        cols.data_ptr(), kernels.stream_handle(e.device),
+    )
+    kernels.check(rc, "K2 k2_fixed")
+    kernels.count("K2")
+    return cols
+
+
+def fixed_prod_dispatch(ctx, n_ints, tables, exps, ebits_list, nbits: int,
+                        gmap=None) -> RnsLazy:
+    """prod_i base_i^exps[i] mod n over a broadcast batch from fixed-base
+    tables (core/rns.py:rns_make_tables) -> RnsLazy.
+
+    Every base's table has the same flattened key-group count G.  Without
+    `gmap` the table batch dims broadcast (right-aligned) against the call
+    batch and each lane reads its own group's row; `gmap` maps each call
+    element to a flattened group row explicitly (group-compressed tables,
+    G groups serving more sessions).  Base i runs ceil(ebits_list[i] / 4)
+    windows, so its exponents must be below 2^ebits_list[i]."""
+    par = RnsParams(nbits)
+    exps = [np.asarray(e, dtype=object) for e in exps]
+    n_arr = np.asarray(n_ints, dtype=object)
+    shape = tuple(np.broadcast_shapes(n_arr.shape, *(e.shape for e in exps)))
+    n_b = np.broadcast_to(n_arr, shape)
+    lead = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    bdims = tuple(tables[0].shape[2:-1])
+    G = int(np.prod(bdims, dtype=np.int64))
+    if any(int(np.prod(t.shape[2:-1], dtype=np.int64)) != G for t in tables):
+        raise ValueError("fixed_prod_dispatch: every base's table needs the same group count")
+    rows_g = np.asarray(gmap, dtype=np.int64) if gmap is not None else \
+        np.arange(G, dtype=np.int64).reshape(bdims)
+    gm = np.broadcast_to(rows_g, shape).reshape(lead)
+    if lead and (int(gm.min()) < 0 or int(gm.max()) >= G):
+        raise ValueError(f"fixed_prod_dispatch: group rows outside [0, {G})")
+    ews, nwins, woffs, off = [], [], [], 0
+    for e, eb in zip(exps, ebits_list):
+        eb_arr = np.broadcast_to(e, shape)
+        if max((int(v).bit_length() for v in eb_arr.reshape(-1).tolist()), default=0) > eb:
+            raise ValueError(f"fixed_prod_dispatch: an exponent exceeds {eb} bits")
+        Le = nlimbs(eb)
+        ews.append(_pack_words(batch_to_limbs(eb_arr, Le).reshape(lead, Le)))
+        nwins.append(-(-eb // WINDOW))
+        woffs.append(off)
+        off += ews[-1].shape[1]
+    dev = ctx.rows.device
+    e = torch.as_tensor(np.concatenate(ews, axis=1), device=dev)
+    grow = torch.as_tensor(np.array(gm), device=dev)
+    rows = _ctx_blocks(ctx, shape, n_b)
+    tabs = [t.reshape(t.shape[0], _NENT, G, t.shape[-1]) for t in tables]
+    cols = fixed_call(e, grow, rows, tabs, nwins, woffs, nbits)
+    return RnsLazy(parts=(cols,), shape=shape, n_b=n_b, MA=par.MA)

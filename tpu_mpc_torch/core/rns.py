@@ -19,7 +19,11 @@ Port notes:
   * The extension dots are float64 matrix products: every term is < 2^32 and
     every sum < K * 2^32 < 2^53, so float64 is exact on both the CPU and the
     card (no int64 matmul exists on CUDA).
-  * RnsCtx holds one row of per-modulus constants in the layout K1 reads.
+  * RnsCtx holds one row of per-modulus constants in the layout K1 and K2
+    read.
+  * Fixed-base tables (rns_make_tables) are int32 tensors [nw, 16, ...batch,
+    CH] of canonical residues, the layout K2 reads; the TPU kernel's
+    channel-Montgomery bf16 byte halves are not carried over.
 """
 
 from __future__ import annotations
@@ -264,6 +268,102 @@ def rns_from_mont_cols(acc, cp: dict, cs: dict, par: RnsParams):
     res = rns_montmul(acc, one, cp, cs, par)
     xi = res[..., :par.K] * cs["invMAk"] % cs["pA"]
     return _dot(xi, cs["Wbin"])
+
+
+def rns_from_limbs(x, cs: dict):
+    """16-bit limbs [..., Lin] -> canonical residues [..., CH] (A | B | r);
+    the limb sums are < Lin * 2^32, exact in float64."""
+    xd = x.double()
+    return torch.cat([
+        torch.matmul(xd, cs["W16A"]).long() % cs["pA"],
+        torch.matmul(xd, cs["W16B"]).long() % cs["pB"],
+        x[..., :1] & 0xFFFF,
+    ], dim=-1)
+
+
+def _serial_chain(step, x0, n: int):
+    """[x0, step(x0), step(step(x0)), ...] (n values) stacked on a new axis 0.
+
+    On a CUDA device one step is captured once as a CUDA graph and replayed:
+    the step is a few hundred small torch launches, and launching them one
+    by one from the host would take most of a table build.  The graph runs
+    the same operations on the same values, so the output is identical."""
+    out = torch.empty((n,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
+    out[0] = x0
+    if n == 1:
+        return out
+    if x0.device.type != "cuda":
+        for j in range(1, n):
+            out[j] = step(out[j - 1])
+        return out
+    cur = x0.clone()
+    side = torch.cuda.Stream(x0.device)
+    side.wait_stream(torch.cuda.current_stream(x0.device))
+    with torch.cuda.stream(side):           # warm-up outside the capture
+        step(cur)
+    torch.cuda.current_stream(x0.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        nxt = step(cur)
+    for j in range(1, n):
+        graph.replay()
+        out[j] = nxt
+        cur.copy_(nxt)
+    return out
+
+
+def _rns_make_fixed_table(xv, cp: dict, cs: dict, par: RnsParams, nw: int):
+    """Fixed-base window tables in RNS-Montgomery form, T[j][d] = x^(d*16^j)
+    (port of rns.py:_rns_make_fixed_table, the same multiplies in the same
+    order).  xv: [..., CH] canonical residues of the bases; -> [nw, 16, ...,
+    CH] int64.  Entry 0 of every window is the Montgomery one.
+
+    Phase 1 is the only serial dependency, the window bases W[j] = x^(16^j)
+    (four squarings each); phase 2 computes E[d] = E[d-1] * W batched over
+    the whole window axis, so the serial depth is 4 * (nw - 1) + 15."""
+    mm = lambda a, b: rns_montmul(a, b, cp, cs, par)
+
+    def step(b):
+        for _ in range(WINDOW):
+            b = mm(b, b)
+        return b
+
+    xm = mm(xv, cp["r2"])
+    W = _serial_chain(step, xm, nw)
+    ents = [cp["mon"].expand(W.shape), W]
+    for _ in range(14):
+        ents.append(mm(ents[-1], W))
+    return torch.stack(ents, dim=1)
+
+
+def rns_make_tables(ctx: RnsCtx, n_ints, bases, max_ebits: int, nbits: int) -> list:
+    """bases [k, ...batch] object ints -> k fixed-base tables, each an int32
+    tensor [nw, 16, ...batch, CH] (nw = ceil(max_ebits / 4)) on the ctx's
+    device, in the layout K2 reads (core/pallas_rns.py:fixed_call).  One
+    build over every base: the k axis rides as a leading batch dim."""
+    b = np.asarray(bases, dtype=object)
+    n_b = np.broadcast_to(np.asarray(n_ints, dtype=object), b.shape)
+    par = RnsParams(nbits)
+    dev = ctx.rows.device
+    cs = dev_consts(par, dev)
+    x = torch.as_tensor(batch_to_limbs(np.mod(b, n_b), par.Lin), device=dev)
+    nw = -(-max_ebits // WINDOW)
+    T = _rns_make_fixed_table(rns_from_limbs(x, cs), ctx_parts(ctx.rows, par), cs, par,
+                              nw).to(torch.int32)
+    return [T[:, :, i].contiguous() for i in range(b.shape[0])]
+
+
+def rns_fixed_prod_dispatch(ctx: RnsCtx, n_ints, tables, exps, ebits_list, nbits: int,
+                            gmap=None) -> RnsLazy:
+    """Launch the squaring-free product prod_i base_i^exps[i] from the
+    tables of rns_make_tables; returns an RnsLazy handle.  The product is K2
+    (core/pallas_rns.py) on the card and its plain version, fixed_plain (the
+    reference's _rns_fixed_prod_kernel), on the CPU.  gmap: optional
+    flattened table-group row per call element (see fixed_prod_dispatch)."""
+    from . import pallas_rns
+
+    return pallas_rns.fixed_prod_dispatch(ctx, n_ints, tables, exps, ebits_list, nbits,
+                                          gmap=gmap)
 
 
 @dataclasses.dataclass

@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "tpu_mpc_torch")
 
 # library name -> (source, headers it includes)
 SOURCES = {
-    "rns": ("rns_exp.cu", ()),
+    "rns": ("rns_exp.cu", ("rns_field.cuh",)),
+    "rns_fixed": ("rns_fixed.cu", ("rns_field.cuh",)),
     "ec": ("ec_kernels.cu", ("ec_field.cuh",)),
 }
 
@@ -41,7 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 _LIBS: dict = {}
 
@@ -99,6 +100,8 @@ def build_all() -> dict:
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_PU64 = ctypes.POINTER(ctypes.c_uint64)
+_PI = ctypes.POINTER(ctypes.c_int)
 
 _SIGNATURES = {
     "rns": {
@@ -106,6 +109,13 @@ _SIGNATURES = {
         # invMA_r, invMB_r, emit_planes, out_cols, out_res, stream
         "k1_exp": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
                    _U, _U, _I, _VP, _VP, _VP],
+    },
+    "rns_fixed": {
+        # e, ne2, grow, ctx, ctx_per_lane, cst, B, K, Kp, Lin, Lout,
+        # invMA_r, invMB_r, nbases, tabs (host), nwin (host), woff (host), G,
+        # out_cols, stream
+        "k2_fixed": [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I,
+                     _U, _U, _I, _PU64, _PI, _PI, _I, _VP, _VP],
     },
     "ec": {
         # pts, digits, neg, B, ns, out, stream

@@ -3,7 +3,9 @@
 Alice encrypts a under her Paillier key (+ range proofs against each peer's
 ring-Pedersen setup); Bob homomorphically computes E(ab + beta') and proves
 knowledge of b and beta'; alpha + beta = ab mod q.  Ciphertext math is
-ModCtx modexps (kernel K1); decryption is PaillierCtxBatch.decrypt_sk.
+ModCtx modexps (kernel K1; Bob's randomizer r^N from the randomizer tables,
+kernel K2, in the tables configuration); decryption is
+PaillierCtxBatch.decrypt_sk.
 """
 
 from __future__ import annotations
@@ -28,13 +30,17 @@ from ..zk.range_proofs import (
 Q = hec.N
 
 
-def paillier_encrypt_ints(ek: PaillierCtxBatch, m, r) -> np.ndarray:
+def paillier_encrypt_ints(ek: PaillierCtxBatch, m, r, rn=None) -> np.ndarray:
     """(1 + m n) r^n mod n^2 on object ints (device modexp; the key
-    owner's CRT half-width path when the sk is attached)."""
+    owner's CRT half-width path when the sk is attached).  rn: r^n already
+    computed (randomizer-table sampling, sample_unit_with_power); r is then
+    not read (it may be a DeferredLaunch, whose np.shape is ())."""
     m = np.asarray(m, dtype=object)
     shape = np.broadcast_shapes(m.shape, np.shape(r), ek.n_ctx.batch_shape)
     n = np.broadcast_to(ek.n, shape)
-    if ek.sk_ctx is not None:
+    if rn is not None:
+        rn = resolve(rn)
+    elif ek.sk_ctx is not None:
         rn = ek.pow_n_sk(r)
     else:
         rn = ek.nn_ctx.pow(r, n, ek.n_ctx.bits)
@@ -72,8 +78,15 @@ def message_b(b_ints, ek: PaillierCtxBatch, msg_a_c, alice_proofs: AliceProofBat
 
     beta_tag = np.asarray(rng.below(n, shape), dtype=object)
     nn = np.broadcast_to(ek.nn, shape)
-    randomness = np.asarray(rng.below(n, shape), dtype=object)
-    rn_l = ek.nn_ctx.pow(randomness, n, ek.n_ctx.bits, sync=False)
+    if ek.enc_tab_g is not None:
+        # Bob encrypts under Alice's key: the randomizer tables replace the
+        # full-width r^N.  No Bob range proof reveals r here, only a blame
+        # replay does, so its launch stays deferred (DeferredLaunch)
+        randomness, rn_l = ek.sample_unit_with_power(shape, rng, sync=False,
+                                                     defer_value=True)
+    else:
+        randomness = np.asarray(rng.below(n, shape), dtype=object)
+        rn_l = ek.nn_ctx.pow(randomness, n, ek.n_ctx.bits, sync=False)
     b_ca_l = ek.nn_ctx.pow(msg_a_c, b_arr, 256, sync=False)
     beta = np.vectorize(lambda v: (-int(v)) % Q, otypes=[object])(beta_tag)
 

@@ -9,9 +9,19 @@ Per-check boolean masks fold onto the culpable party like the reference's
 ErrorType { error_type, bad_actors }.  Keygen, blame, key refresh and the
 fault-injection seams of the reference wait for later slices.
 
-Configuration of this slice: no fixed-base tables (ring-Pedersen products
-through ModCtx.pow_prod), uniform encryption randomizers, cross-session
-batch verification on at S >= 8 (zk/batch_verify.py).
+Two configurations, selected by TPU_MPC_TORCH_ENC_TABLES
+(zk/range_proofs.py:enc_tables_enabled; unset = tables on the card, none on
+the CPU):
+  tables   the JAX package's default on an accelerator: key_from_material
+           builds the h1/h2 tables and the randomizer tables once on the
+           pre-tile key, tile_key shares them, and every ring-Pedersen
+           commitment, r^N and folded response s = g^(r_t e + t_beta) is a
+           fixed-base product (kernel K2);
+  uniform  no tables: ring-Pedersen products through ModCtx.pow_prod (K1),
+           uniform encryption randomizers (the reference's
+           TPU_MPC_ENC_TABLES=0).
+Cross-session batch verification is on at S >= 8 in both
+(zk/batch_verify.py).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import dataclasses
 import numpy as np
 
 from ...core.limbs import batch_from_limbs
+from ...core.modctx import LazyMap
 from ...device import resolve_device, to_numpy
 from ...ec import secp256k1 as dec
 from ...hashes.fiat_shamir import commit_rows, point_hash_ints
@@ -96,7 +107,8 @@ def key_from_material(src, device=None) -> LocalKeyBatch20:
     the plain-int dict of benches/bench_key_2048.json / tests/fixtures/
     gg20key_*.json (ints or decimal strings; S defaults to 1), or a
     tpu_mpc LocalKeyBatch20 object (read through its numpy-convertible
-    fields).  Builds every device context on `device` (default "cuda")."""
+    fields).  Builds every device context on `device` (default "cuda"), and
+    in the tables configuration the h1/h2 and randomizer tables."""
     dev = resolve_device(device)
     if isinstance(src, dict):
         d = src
@@ -113,11 +125,13 @@ def key_from_material(src, device=None) -> LocalKeyBatch20:
         u, x = _ints(src.u), _ints(src.x)
         y_i_h, vss_h = _host_points(src.y_i), _host_points(src.vss.commitments)
     y_i = dec.points_from_host(y_i_h, dev)
+    # the tables of the tables configuration, built once while the key batch
+    # is small (before tile_key), as the reference's keygen does
+    ek = PaillierCtxBatch.from_ints(p * q, bits, dev).attach_sk(p, q).ensure_enc_tables()
+    dlog_stmt = DlogStatementBatch.from_ints(nt, h1, h2, bits, dev).ensure_tables()
     return LocalKeyBatch20(
         S=S, t=t, n=n, paillier_bits=bits, p=p, q=q,
-        ek=PaillierCtxBatch.from_ints(p * q, bits, dev).attach_sk(p, q),
-        dk=dp.BatchDecryptionKey.from_ints(p, q, bits),
-        dlog_stmt=DlogStatementBatch.from_ints(nt, h1, h2, bits, dev),
+        ek=ek, dk=dp.BatchDecryptionKey.from_ints(p, q, bits), dlog_stmt=dlog_stmt,
         u=u, x=x, y=dec.point_sum(y_i, axis=1), y_i=y_i,
         vss=feldman.VssSchemeBatch(t=t, n=n, commitments=dec.points_from_host(vss_h, dev)),
     )
@@ -125,7 +139,7 @@ def key_from_material(src, device=None) -> LocalKeyBatch20:
 
 def tile_key(key1: LocalKeyBatch20, S: int) -> LocalKeyBatch20:
     """Broadcast a 1-session key batch across S sessions (the serving
-    pattern of one signer group)."""
+    pattern of one signer group).  The tables are shared, not copied."""
     tile_np = lambda a: np.broadcast_to(a, (S,) + a.shape[1:]).copy()
     tile_pt = lambda P: dec.Point(*(c.expand((S,) + tuple(c.shape[1:])) for c in P))
     return LocalKeyBatch20(
@@ -172,10 +186,10 @@ class OfflineState:
     y: dec.Point
     ok: np.ndarray                # [S]
     bad_actors: np.ndarray        # [S, tp]
-    k_randomness: np.ndarray      # [S, tp]
+    k_randomness: object          # [S, tp] ints, or a DeferredLaunch (tables)
     gamma: np.ndarray
     beta_g: np.ndarray            # [S, alice, bob]
-    beta_randomness: np.ndarray
+    beta_randomness: object       # dense ints, or a LazyMap of a DeferredLaunch
     beta_tag: np.ndarray
     alpha: np.ndarray
     msg_a_c: np.ndarray           # [S, tp] k ciphertexts
@@ -205,6 +219,9 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
     tp = len(s_parties)
     dev = key.device
     sc = lambda v: _sc(v, dev)
+    # h1/h2 tables: a no-op when built at load, outside the tables
+    # configuration, or for a statement batch too large for tables
+    key.dlog_stmt.ensure_tables()
 
     lam = np.asarray([feldman.lagrange_coeff(i, s_parties) for i in s_parties], dtype=object)
     x_s = key.x[:, s_parties]
@@ -220,17 +237,27 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
 
     ek_s = key.ek.take(s_parties, 1)
     stmt_s = key.dlog_stmt.take(s_parties, 1)         # [S, tp]
-    # MessageA: alice i encrypts k_i, proving range to each peer j's stmt
-    r_a = rng.below(np.broadcast_to(ek_s.n, (S, tp)), (S, tp))
+    # MessageA: alice i encrypts k_i, proving range to each peer j's stmt.
+    # With the randomizer tables, (r_a, r_a^N) come squaring-free and r_a
+    # itself stays a deferred launch: the proofs fold its table exponent
+    # r_a_t instead, and only a blame replay materializes r_a
+    rn_a = r_a_t = None
+    if ek_s.enc_tab_g is not None:
+        r_a, rn_a, r_a_t = ek_s.sample_unit_with_power(
+            (S, tp), rng, sync=False, defer_value=True, want_t=True)
+    else:
+        r_a = rng.below(np.broadcast_to(ek_s.n, (S, tp)), (S, tp))
     # off-diagonal packed pair layout [S, alice, tp-1]
     peers, iinv = _peer_idx(tp)
     kidx = np.broadcast_to(np.arange(tp - 1), (tp, tp - 1))
     stmt_peers = stmt_s.take(peers, 1)                # [S, alice, tp-1]
     ek_alice_pairs = ek_s.expand(2)                   # [S, tp, 1]
 
-    c_a = mta.paillier_encrypt_ints(ek_s, k, r_a)     # [S, tp]
-    alice_proofs = alice_prove(k[:, :, None], c_a[:, :, None], ek_alice_pairs, stmt_peers,
-                               r_a[:, :, None], rng)
+    c_a = mta.paillier_encrypt_ints(ek_s, k, r_a, rn=rn_a)     # [S, tp]
+    alice_proofs = alice_prove(
+        k[:, :, None], c_a[:, :, None], ek_alice_pairs, stmt_peers,
+        None if r_a_t is not None else r_a[:, :, None], rng,
+        r_t=None if r_a_t is None else r_a_t[:, :, None])
 
     # MessageB (bob j responds to alice i) — both responder paths (gamma and
     # w) ride one stacked [2, ...] call
@@ -288,8 +315,10 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
         G_pt=dec.point_expand(R_pairs, 2),
         dlog=stmt_peers,
     )
-    pdl_proofs = pdl_slack_prove(np.broadcast_to(k[:, :, None], pshape),
-                                 np.broadcast_to(r_a[:, :, None], pshape), pdl_stmt, rng)
+    pdl_proofs = pdl_slack_prove(
+        np.broadcast_to(k[:, :, None], pshape),
+        None if r_a_t is not None else np.broadcast_to(r_a[:, :, None], pshape),
+        pdl_stmt, rng, r_t=None if r_a_t is None else r_a_t[:, :, None])
     pdl_ok = pdl_slack_verify_fast(pdl_proofs, pdl_stmt)  # [S, alice, tp-1]
 
     # phase5_check_R_dash_sum: sum R_bar == G
@@ -313,11 +342,18 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
         "rdash": rdash_ok, "s_sum": s_sum_ok,
     }
     dense = lambda a, fill: _unpack_dense(np.asarray(a, dtype=object), peers, fill)
+    # the responder randomness is revealed only on blame: when the tables
+    # deferred its launch it stays deferred (the gamma path is row 0)
+    if hasattr(beta_rand2, "ints"):
+        beta_rand_dense = LazyMap(
+            beta_rand2, lambda v: _unpack_dense(np.asarray(v, dtype=object)[0], peers, 1))
+    else:
+        beta_rand_dense = dense(beta_rand2[0], 1)
     return OfflineState(
         s_parties=s_parties, R=R, r_x=r_x, k=k, sigma_i=sigma_i, delta_i=delta_i,
         y=key.y, ok=np.asarray(ok), bad_actors=~per_party_ok,
         k_randomness=r_a, gamma=gamma, beta_g=dense(beta_g, 0),
-        beta_randomness=dense(beta_rand2[0], 1),
+        beta_randomness=beta_rand_dense,
         beta_tag=dense(beta_tag, 0), alpha=dense(alpha_raw, 0), msg_a_c=c_a,
         msg_b_gamma_c=dense(msg_b_gamma.c, 0),
         R_bar=R_bar, S_i=S_i, T_i=T_i, l_i=l_i,

@@ -53,8 +53,11 @@ class PDLwSlackProofBatch:
     s3: np.ndarray
 
 
-def pdl_slack_prove(x_ints, r_ints, stmt: PDLwSlackStatementBatch, rng) -> PDLwSlackProofBatch:
-    """x: dlog witness (< q); r: Paillier randomness of the ciphertext."""
+def pdl_slack_prove(x_ints, r_ints, stmt: PDLwSlackStatementBatch, rng,
+                    r_t=None) -> PDLwSlackProofBatch:
+    """x: dlog witness (< q); r: Paillier randomness of the ciphertext.
+    r_t: the table exponent of r (see range_proofs.alice_prove): folds
+    s2 = r^e beta into one fixed-base power."""
     x = np.asarray(x_ints, dtype=object)
     shape = np.broadcast_shapes(x.shape, stmt.dlog.ctx.batch_shape, stmt.ek.n_ctx.batch_shape)
     n_t = np.broadcast_to(stmt.dlog.ctx.n_ints, shape)
@@ -62,18 +65,27 @@ def pdl_slack_prove(x_ints, r_ints, stmt: PDLwSlackStatementBatch, rng) -> PDLwS
     nn = np.broadcast_to(stmt.ek.nn, shape)
 
     alpha = rng.below(Q3, shape)
-    one = np.ones(shape, dtype=object) if shape else 1
-    beta = rng.below(n - 1, shape) + one      # sample_range(1, n-1)
+    u2_l = beta_t = None
+    use_fold = stmt.ek.enc_tab_g is not None and r_t is not None
+    # beta is sampled like r (see alice_prove)
+    if use_fold:
+        _, u2_l, beta_t = stmt.ek.sample_unit_with_power(
+            shape, rng, sync=False, defer_value=True, want_t=True)
+    else:
+        one = np.ones(shape, dtype=object) if shape else 1
+        beta = rng.below(n - 1, shape) + one      # sample_range(1, n-1)
     rho = rng.below(Q * n_t, shape)
     gamma = rng.below(Q3 * n_t, shape)
 
     tb = stmt.dlog.ctx.bits
     z_l = stmt.dlog.pow_h1h2(x, rho, hints=(E_BITS, E_BITS + tb), sync=False)
-    # (N+1)^alpha mod N^2 == 1 + alpha*N; beta^N on the owner's CRT path
-    if stmt.ek.sk_ctx is not None:
-        u2_l = stmt.ek.pow_n_sk(beta, sync=False)
-    else:
-        u2_l = stmt.ek.nn_ctx.pow(beta, n, ebits_hint=stmt.ek.n_ctx.bits, sync=False)
+    # (N+1)^alpha mod N^2 == 1 + alpha*N; beta^N from the randomizer tables
+    # (sampled above) or on the owner's CRT path
+    if u2_l is None:
+        if stmt.ek.sk_ctx is not None:
+            u2_l = stmt.ek.pow_n_sk(beta, sync=False)
+        else:
+            u2_l = stmt.ek.nn_ctx.pow(beta, n, ebits_hint=stmt.ek.n_ctx.bits, sync=False)
     u3_l = stmt.dlog.pow_h1h2(alpha, gamma, hints=(768, 768 + tb), sync=False)
     u1_pt = dec.scalar_mul(dec.sc_from_ints(obj_mod(alpha, Q), stmt.G_pt.X.device), stmt.G_pt)
     u1x_l, u1y_l, _ = dec.to_affine(u1_pt)
@@ -86,7 +98,12 @@ def pdl_slack_prove(x_ints, r_ints, stmt: PDLwSlackStatementBatch, rng) -> PDLwS
     gi, qi, u1i = point_hash_ints_many(stmt.G_pt, stmt.Q_pt, u1_pt)
     e = digest_rows(gi, qi, stmt.ciphertext, z, u1i, u2, u3)
     s1 = e * x + alpha
-    s2 = _mulmod(stmt.ek.n_ctx.pow(r_ints, e, ebits_hint=E_BITS), beta, n)
+    if use_fold:
+        s2 = resolve(stmt.ek.pow_enc_base(
+            np.asarray(r_t, dtype=object) * e + beta_t,
+            ebits_hint=stmt.ek.enc_table_max_ebits(stmt.ek.n_ctx.bits)))
+    else:
+        s2 = _mulmod(stmt.ek.n_ctx.pow(r_ints, e, ebits_hint=E_BITS), beta, n)
     s3 = e * rho + gamma
     return PDLwSlackProofBatch(z=z, u1_x=u1_x, u1_y=u1_y, u2=u2, u3=u3, s1=s1, s2=s2, s3=s3)
 
