@@ -10,7 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. check   every kernel (K1-K5) against its plain PyTorch version on the
              card, exactly (integers: tolerance 0), at the slice's shapes,
              with samples against python pow() and the host EC oracle, and
-             time both (CUDA events); K2's table builds are timed too;
+             time both (CUDA events); K2's table builds are timed too.  K1
+             and K2 also at lane counts that are not a multiple of their
+             lane tile (1, L - 1, L + 1; 513 for K1), with one modulus per
+             lane inside a tile, K2 with three key groups in every tile,
+             and K1 at 4096 bits, whose tensor-core planes partly stream
+             from L2;
   3. slice   GG20 2-of-3 signing at 2048-bit Paillier: the bench key
              (benches/bench_key_2048.json) tiled to S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
@@ -20,7 +25,8 @@ Phases (any failure exits non-zero and prints no result line):
              tables, uniform.  Every signature must verify under the
              pure-python ECDSA verifier; every kernel must have been
              launched in each tables pass, every kernel but K2 in each
-             uniform pass.
+             uniform pass.  Each timed pass prints K1's device time split by
+             operand width (2048-bit N, 4096-bit N^2).
 Then it prints one JSON line {"kernels": [...]}, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  It imports nothing of jax or
 of the reference package tpu_mpc.
@@ -48,6 +54,9 @@ MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # widening IMAD counted as one instruction keeps the bound a lower bound.
 PEAK_BYTES = 3.35e12
 PEAK_IMAD = 132 * 64 * 1.98e9
+# K1 and K2 run their extension and decode dots as u8 products on the tensor
+# cores: 1979 T int8 operations/s dense (NVIDIA's data sheet) = 989.5 T MAC/s
+PEAK_U8_MAC = 1979e12 / 2
 # multiply-adds of one secp256k1 field operation on 8 x 32-bit limbs
 # (reductions not counted): product, square, multiply by a small constant
 FE_MUL, FE_SQ, FE_MULI = 64, 36, 8
@@ -80,13 +89,37 @@ def _events_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _bound(nbytes: float, imads: float):
-    """Least time (ms) for `nbytes` moved once and `imads` multiply-adds.
+def _bound(nbytes: float, imads: float, u8_macs: float = 0.0):
+    """Least time (ms) for `nbytes` moved once, `imads` INT32 multiply-adds
+    and `u8_macs` u8 tensor-core multiply-adds: the largest of the three.
     Bytes count each value at the width it needs: 16-bit limbs and residues
-    2 B, digits and signs 1 B, exponent words and K1's constants 4 B, K1's
-    column sums 8 B."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, imads / PEAK_IMAD * 1e3
+    2 B, digits and signs 1 B, exponent words and K1's constants 4 B, the
+    tensor-core planes 1 B, K1's column sums 8 B."""
+    tb = nbytes / PEAK_BYTES * 1e3
+    to = max(imads / PEAK_IMAD, u8_macs / PEAK_U8_MAC) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _rns_work(par, mm: int, lanes: int, prologue: bool):
+    """(u8 MACs, IMADs, IMAD-only count) of `mm` RNS Montgomery multiplies
+    plus the decode (and K1's prologue) on `lanes` lanes.  A multiply is two
+    extension products, K (Kp+1) + Kp (K+1) entries, each 4 u8 chunk
+    products on the tensor cores; the decode is K Lout entries.  Channel
+    work: 3 products on each A-channel, 4 on each B-channel and 3 on the r
+    channel, each one multiply-add plus a Barrett reduction (2), and the
+    three-reduction fold of every extension output (6 per channel).  The
+    IMAD-only count runs the dots as IMADs beside 7 CH channel products, as
+    the one-lane-per-block kernels did: the row's imad_bound_ms, which
+    compares with the bounds recorded for those."""
+    K, Kp, CH = par.K, par.Kp, par.CH
+    ext = K * (Kp + 1) + Kp * (K + 1)
+    u8 = lanes * 4 * (mm * ext + K * par.Lout)
+    chan = 3 * (3 * K + 4 * Kp + 3) + 6 * (K + Kp)
+    imad = lanes * (mm * chan + (par.Lin * (K + Kp) + 4 * (K + Kp) if prologue else 0)
+                    + 3 * K)
+    old = lanes * (mm * (ext + 7 * CH) + (par.Lin * (K + Kp) if prologue else 0)
+                   + K * par.Lout)
+    return u8, imad, old
 
 
 def _maxerr(a, b) -> int:
@@ -97,7 +130,28 @@ def _maxerr(a, b) -> int:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def _k1_bound(par, lanes, ne2, x, e, rows, dev):
+    """K1's bound (ms, by) and its IMAD-only bound (ms) for one launch."""
+    from tpu_mpc_torch.core import pallas_rns as pr
+
+    # Montgomery multiplies: x*R^2, 14 table entries, 8 windows of 4
+    # squarings + 1 multiply per e-word, the decode's *1
+    mm = 1 + 14 + ne2 * 8 * 5 + 1
+    u8, imad, old = _rns_work(par, mm, lanes, prologue=True)
+    cs = pr.dev_consts(par, dev)
+    nbytes = (2 * (x.numel() + rows.numel()) + 4 * e.numel() + 4 * cs["flat32"].numel()
+              + cs["planes"].numel() + 8 * lanes * par.Lout)
+    bms, bby = _bound(nbytes, imad, u8)
+    return bms, bby, _bound(nbytes, old)[0]
+
+
 def check_k1(dev, rnd):
+    """K1 at the slice's shapes: 512 lanes at 2048 bits and 256 lanes at 4096
+    bits (whose planes do not all fit in shared memory: the streamed path),
+    one modulus for all lanes or one per lane, decode columns or residues for
+    the axis-0 fold; exact against exp_plain, samples against python pow.
+    Then ragged lane counts (1, L - 1, L + 1, 513) with one modulus per lane
+    inside every tile.  Times both widths."""
     import numpy as np
     import torch
 
@@ -114,11 +168,7 @@ def check_k1(dev, rnd):
                 # reduce with per-lane moduli: S = 2 rows of `rest` distinct moduli
                 S, rest = (2, lanes // 2) if (reduce and per_lane) else (lanes, 1)
                 nmods = (rest if reduce else lanes) if per_lane else 1
-                ns = []
-                while len(ns) < nmods:
-                    n = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
-                    if math.gcd(n, par.MA * par.MB) == 1:
-                        ns.append(n)
+                ns = _odd_moduli(rnd, bits, nmods, par)
                 n_arr = np.asarray(ns, dtype=object)
                 n_b = np.broadcast_to(n_arr, (S, rest)) if (per_lane and reduce) else \
                     np.broadcast_to(n_arr, (lanes,))
@@ -158,29 +208,44 @@ def check_k1(dev, rnd):
                         want = pow(int(base[i]), int(expo[i]), int(flat_n[i]))
                         require(int(got[i]) == want, "K1 != python pow")
                 line = f"K1 {bits}b lanes={lanes} per_lane={per_lane} reduce={reduce}: exact"
-                if bits == 2048 and per_lane and not reduce:
+                if per_lane and not reduce:
                     ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, emit), 3)
                     pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, emit), 1)
-                    ne2 = e.shape[1]
-                    # Montgomery multiplies: x*R^2, 14 table entries, 8 windows
-                    # of 4 squarings + 1 multiply per e-word, the decode's *1;
-                    # each is two extension dots plus 7 channel products
-                    mm = 1 + 14 + ne2 * 8 * 5 + 1
-                    per_mm = par.K * (par.Kp + 1) + par.Kp * (par.K + 1) + 7 * par.CH
-                    imads = lanes * (mm * per_mm + par.Lin * (par.K + par.Kp)
-                                     + par.K * par.Lout)
-                    nbytes = (2 * (x.numel() + rows.numel()) + 4 * e.numel()
-                              + 4 * pr.dev_consts(par, dev)["flat32"].numel()
-                              + 8 * lanes * par.Lout)
-                    bms, bby = _bound(nbytes, imads)
-                    entry = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                                 shape=f"{lanes} lanes, {bits}-bit moduli (one per lane), "
-                                       f"{ebits}-bit exponents")
-                    line += f"; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.4f} ms"
-                if bits == 4096 and per_lane and not reduce:
-                    ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, emit), 2)
-                    line += f"; kernel {ms:.3f} ms"
+                    bms, bby, ims = _k1_bound(par, lanes, e.shape[1], x, e, rows, dev)
+                    line += (f"; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.4f} ms "
+                             f"({bby}), IMAD bound {ims:.4f} ms")
+                    if bits == 2048:
+                        entry = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                     imad_bound_ms=ims,
+                                     shape=f"{lanes} lanes, {bits}-bit moduli (one per lane), "
+                                           f"{ebits}-bit exponents")
+                    else:
+                        entry.update(ms_4096=ms, plain_ms_4096=pms, bound_ms_4096=bms,
+                                     imad_bound_ms_4096=ims)
                 log(line)
+    # ragged lane counts, one modulus per lane, both emit modes
+    par = RnsParams(2048)
+    L = pr.LANE_TILE
+    for B in (1, L - 1, L + 1, 513):
+        ns = np.asarray(_odd_moduli(rnd, 2048, B, par), dtype=object)
+        base = np.asarray([rnd.getrandbits(2048) % int(v) for v in ns], dtype=object)
+        expo = np.asarray([rnd.getrandbits(256) for _ in range(B)], dtype=object)
+        x = torch.as_tensor(batch_to_limbs(base, par.Lin), device=dev)
+        e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(256))), device=dev)
+        rows = RnsCtx.from_ints(ns, 2048, dev).rows
+        for emit in (True, False):
+            out_k = pr.exp_call(x, e, rows, 2048, emit_planes=emit)
+            out_p = pr.exp_plain(x, e, rows, 2048, emit_planes=emit)
+            torch.cuda.synchronize()
+            err = _maxerr(out_k, out_p)
+            worst = max(worst, err)
+            require(err == 0 and out_k.shape == out_p.shape,
+                    f"K1 ragged B={B} emit={emit}: kernel != plain (max |diff| {err})")
+        got = RnsLazy((pr.exp_call(x, e, rows, 2048),), (B,), ns, par.MA).ints()
+        for i in sorted({0, B - 1, B // 2}):
+            require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(ns[i])),
+                    f"K1 ragged B={B} lane {i} != python pow")
+        log(f"K1 2048b ragged lanes={B} (tile {L}), one modulus per lane: exact")
     entry["max_abs_err"] = worst
     return entry
 
@@ -264,6 +329,7 @@ def check_k2(dev, rnd):
     for name, bits, mc, T, exps, ebs, gm, ref in cases:
         par = RnsParams(bits)
         # the wrapper's inputs, exactly as fixed_prod_dispatch builds them
+        # (lanes sorted by group row)
         cap = {}
         real = pr.fixed_call
         pr.fixed_call = lambda *a: cap.setdefault("a", a) and real(*a)
@@ -272,9 +338,10 @@ def check_k2(dev, rnd):
                                         gmap=gm)
         finally:
             pr.fixed_call = real
-        e, grow, rows, tabs_k, nwins, woffs, _ = cap["a"]
-        out_k = lz.parts[0]
-        out_p = pr.fixed_plain(e, grow, rows, tabs_k, nwins, woffs, bits)
+        args = cap["a"]
+        e, grow, rows, tabs_k, nwins, woffs, _ = args
+        out_k = pr.fixed_call(*args)
+        out_p = pr.fixed_plain(*args)
         torch.cuda.synchronize()
         err = _maxerr(out_k, out_p)
         worst = max(worst, err)
@@ -288,12 +355,11 @@ def check_k2(dev, rnd):
             if b2 is not None:
                 want = want * pow(int(b2), int(flat[1][i]), int(m)) % int(m)
             require(int(got[i]) == want, f"K2 {name} lane {i} != python pow")
-        ms = _events_ms(lambda: pr.fixed_call(e, grow, rows, tabs_k, nwins, woffs, bits), 3)
-        pms = _events_ms(lambda: pr.fixed_plain(e, grow, rows, tabs_k, nwins, woffs, bits), 1)
+        ms = _events_ms(lambda: pr.fixed_call(*args), 3)
+        pms = _events_ms(lambda: pr.fixed_plain(*args), 1)
         B = e.shape[0]
         mm = sum(nwins) + 1                    # one multiply per window, the decode's *1
-        per_mm = par.K * (par.Kp + 1) + par.Kp * (par.K + 1) + 7 * par.CH
-        imads = B * (mm * per_mm + par.K * par.Lout)
+        u8, imad, old = _rns_work(par, mm, B, prologue=False)
         # table entries this run's digits touch (per base: window, digit, group)
         touched = 0
         for t_, nwin, woff in zip(tabs_k, nwins, woffs):
@@ -301,19 +367,88 @@ def check_k2(dev, rnd):
             dig = (e[:, woff + j // 8] >> (4 * (j % 8))) & 15
             key = (j * 16 + dig) * t_.shape[2] + grow[:, None]
             touched += int(torch.unique(key).numel())
+        cs = pr.dev_consts(par, dev)
         nbytes = (2 * touched * par.CH + 2 * rows.numel() + 4 * e.numel() + 4 * grow.numel()
-                  + 4 * pr.dev_consts(par, dev)["flat32"].numel() + 8 * B * par.Lout)
-        bms, bby = _bound(nbytes, imads)
+                  + 4 * cs["flat32"].numel() + cs["planes"].numel() + 8 * B * par.Lout)
+        bms, bby = _bound(nbytes, imad, u8)
+        ims = _bound(nbytes, old)[0]
         log(f"K2 {name} {bits}b lanes={B} windows={nwins}: exact; kernel {ms:.3f} ms, "
-            f"plain {pms:.1f} ms, bound {bms:.4f} ms ({bby})")
+            f"plain {pms:.1f} ms, bound {bms:.4f} ms ({bby}), IMAD bound {ims:.4f} ms")
         if name == "h1h2":
-            entry = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+            entry = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, imad_bound_ms=ims,
                          shape=f"{B} lanes, 2048-bit h1/h2 pair, exponent classes "
                                f"{ebs[0]} + {ebs[1]}, G = 2")
+        else:
+            entry[f"ms_{name}"] = ms
+        if name != "h1h2":
+            # the lanes in the caller's order, which mixes group rows inside
+            # every tile (gmap: two groups staged, a third read from L2; h4096:
+            # two keys, at 4096 bits), and ragged lane counts
+            L = pr.LANE_TILE
+            g_caller = gm if gm is not None else \
+                np.broadcast_to(np.arange(T[0].shape[2]), (S, T[0].shape[2])).reshape(-1)
+            inv = torch.as_tensor(np.argsort(np.argsort(g_caller, kind="stable")), device=dev)
+            for B2 in (B, 1, L - 1, L + 1):
+                sub = inv[:B2]
+                a2 = (e[sub], grow[sub], rows[sub] if rows.shape[0] > 1 else rows, tabs_k,
+                      nwins, woffs, bits)
+                out_k = pr.fixed_call(*a2)
+                out_p = pr.fixed_plain(*a2)
+                torch.cuda.synchronize()
+                err = _maxerr(out_k, out_p)
+                worst = max(worst, err)
+                require(err == 0 and out_k.shape == out_p.shape,
+                        f"K2 {name} unsorted lanes={B2}: kernel != plain (max |diff| {err})")
+            log(f"K2 {name}, lanes in the caller's order (mixed groups in a tile of {L}), "
+                f"lanes {B}, 1, {L - 1}, {L + 1}: exact")
+    worst = max(worst, _check_k2_three_groups_4096(dev, rnd))
     for k, v in builds.items():
         log(f"K2 table build {k}: {v:.2f} s")
     entry["max_abs_err"] = worst
     return entry
+
+
+def _check_k2_three_groups_4096(dev, rnd) -> int:
+    """K2 at 4096 bits (17 warps, part of the planes read from L2) with three
+    key groups interleaved in every tile, so that the third group's entries
+    come from L2; one modulus per lane, ragged lane counts; exact against
+    fixed_plain and python pow.  Returns the largest |diff| (0)."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.modctx import ModCtx
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
+    bits, G, ebits = 4096, 3, 64
+    par = RnsParams(bits)
+    ns = np.asarray(_odd_moduli(rnd, bits, G, par), dtype=object)
+    hb = np.asarray([[rnd.getrandbits(bits) % int(n) for n in ns]], dtype=object)
+    T = ModCtx.from_ints(ns, bits, dev).make_tables_rns(hb, ebits)[0]
+    L = pr.LANE_TILE
+    worst = 0
+    for B in (L - 1, L + 1, 3 * L + 1):
+        gmap = np.asarray([(7 * i + i // 3) % G for i in range(B)])
+        expo = np.asarray([rnd.getrandbits(ebits) for _ in range(B)], dtype=object)
+        e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(ebits))), device=dev)
+        grow = torch.as_tensor(gmap, device=dev)
+        rows = RnsCtx.from_ints(ns[gmap], bits, dev).rows
+        args = (e, grow, rows, [T], [ebits // 4], [0], bits)
+        out_k = pr.fixed_call(*args)
+        out_p = pr.fixed_plain(*args)
+        torch.cuda.synchronize()
+        err = _maxerr(out_k, out_p)
+        worst = max(worst, err)
+        require(err == 0 and out_k.shape == out_p.shape,
+                f"K2 4096b three groups lanes={B}: kernel != plain (max |diff| {err})")
+        got = RnsLazy((out_k,), (B,), ns[gmap], par.MA).ints()
+        for i in sorted({0, 1, 2, B - 1}):
+            want = pow(int(hb[0, gmap[i]]), int(expo[i]), int(ns[gmap[i]]))
+            require(int(got[i]) == want, f"K2 4096b three groups lane {i} != python pow")
+    log(f"K2 4096b, three key groups in every tile of {L}, lanes {L - 1}, {L + 1}, "
+        f"{3 * L + 1}: exact")
+    return worst
 
 
 def _rand_points(dev, rnd, B):
@@ -509,6 +644,8 @@ def run_slice(dev, repo, host_profile: bool = False):
             out = fn(*a, **kw)
             ev[1].record()
             spans[name].append(ev)
+            if name == "K1":                       # K1 by width (a[3] = nbits)
+                spans.setdefault(f"K1 {a[3]}b", []).append(ev)
             return out
         return run
 
@@ -527,14 +664,15 @@ def run_slice(dev, repo, host_profile: bool = False):
                 setattr(m, f, fn)
         launches = dict(kernels.LAUNCHES)
         busy = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        k1_by_width = {k: round(busy.pop(k), 3) for k in sorted(busy) if k.startswith("K1 ")}
         runs.append((cfg, launches, busy, dt))
         tot = sum(busy.values())
         log(f"slice[{cfg}]: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
             f"{dt - t_off:.2f} s), {S_SESSIONS / dt:.2f} sig/s, all {S_SESSIONS} signatures "
             f"verify; kernel device time (ms) "
             + json.dumps({k: round(v, 3) for k, v in busy.items()})
-            + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); launches "
-            + json.dumps(launches))
+            + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); K1 by width "
+            + json.dumps(k1_by_width) + "; launches " + json.dumps(launches))
         want = [k for k in launches if cfg == "tables" or k != "K2"]
         missing = [k for k in want if launches[k] == 0]
         require(not missing, f"slice[{cfg}]: kernels not launched on the main path: {missing}")
@@ -624,7 +762,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,
+            **{k: v for k, v in r.items() if k.startswith(("ms_", "plain_ms_", "bound_ms_",
+                                                           "imad_bound_ms_"))},
             "shape": r["shape"],
         })
     print(json.dumps({"kernels": rows}), flush=True)

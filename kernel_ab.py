@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time K1 and K2 of one or more checkouts of this repository on one card, in turns.
+
+    python3 kernel_ab.py TREE [TREE ...]        (e.g. old new new old)
+
+Each TREE is the root of a checkout (its chip_smoke.py and tpu_mpc_torch/).
+The trees run one after another, each in a process of its own, in the order
+given.  The process builds the tree's kernels (printing what ptxas reports)
+and runs the tree's own chip_smoke.check_k1 and check_k2: they hold K1 and K2
+exactly against the tree's plain versions at the slice's shapes and time
+them with CUDA events.  It prints one JSON line with the kernel ms of every
+shape those checks time.  Each check draws its inputs from a fresh
+random.Random(SEED), so trees whose checks draw alike see the same numbers.
+Needs one CUDA card; imports nothing of jax or of tpu_mpc.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import re
+import subprocess
+import sys
+import time
+
+SEED = 20261017
+# the checks' log lines of a timed shape: "<shape>: exact...; kernel <ms> ms"
+_TIMED = re.compile(r"(K[12] [^:]*): exact.*?; kernel ([0-9.]+) ms")
+
+
+def worker(tree: str) -> int:
+    import torch
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke
+    from tpu_mpc_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    res = {"tree": tree, "build_s": round(time.perf_counter() - t0, 1), "ptxas": [],
+           "times": {}}
+    for name in ("rns", "rns_fixed"):
+        for line in built.get(name, (0, ""))[1].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                res["ptxas"].append(f"{name}: {line.strip()}")
+    lines = []
+    chip_smoke.log = lines.append
+    rc = 0
+    try:
+        chip_smoke.check_k1(dev, random.Random(SEED))
+        chip_smoke.check_k2(dev, random.Random(SEED))
+    except Exception as exc:   # a failed check: report it with what was timed
+        res["error"] = f"{type(exc).__name__}: {exc}"
+        rc = 1
+    for line in lines:
+        m = _TIMED.match(line)
+        if m:
+            res["times"][m.group(1)] = float(m.group(2))
+    print(json.dumps(res), flush=True)
+    return rc
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--worker"]:
+        return worker(args[1])
+    if not args:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip()}", flush=True)
+    rc = 0
+    for tree in args:
+        rc = max(rc, subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
+                                     tree]).returncode)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

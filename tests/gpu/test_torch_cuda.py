@@ -94,3 +94,63 @@ def test_ec_kernels_equal_plain(dev):
     rows = torch.stack([P.X, P.Y, P.Z], 1)[:, None]
     assert torch.equal(pe.ladder_call(rows, DG, NEG), pe.ladder_plain(rows, DG, NEG))
     assert torch.equal(pe.affine_call(rows[:, 0]), pe.affine_plain(rows[:, 0]))
+
+
+def test_k1_ragged_lanes_and_per_lane_moduli(dev):
+    """Lane counts that are not a multiple of the lane tile, one modulus per
+    lane inside a tile, both emit modes: kernel == plain, and python pow."""
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
+    L = pr.LANE_TILE
+    rnd = random.Random(L)
+    bits = 768
+    par = RnsParams(bits)
+    for B in (1, L - 1, L + 1):
+        ns = np.asarray([rnd.getrandbits(bits) | 1 | (1 << (bits - 1)) for _ in range(B)],
+                        dtype=object)
+        b = np.asarray([rnd.getrandbits(bits) % int(n) for n in ns], dtype=object)
+        e = np.asarray([rnd.getrandbits(128) for _ in range(B)], dtype=object)
+        x = torch.as_tensor(batch_to_limbs(b, par.Lin), device=dev)
+        ew = torch.as_tensor(pr._pack_words(batch_to_limbs(e, 8)), device=dev)
+        rows = RnsCtx.from_ints(ns, bits, dev).rows
+        for emit in (True, False):
+            assert torch.equal(pr.exp_call(x, ew, rows, bits, emit),
+                               pr.exp_plain(x, ew, rows, bits, emit))
+        got = RnsLazy((pr.exp_call(x, ew, rows, bits),), (B,), ns, par.MA).ints()
+        assert all(int(g) == pow(int(v), int(k), int(n)) for g, v, k, n in zip(got, b, e, ns))
+
+
+def test_k2_mixed_groups_in_a_tile(dev, monkeypatch):
+    """K2 with lanes of three key groups interleaved inside each tile (the
+    staged groups and the L2 path for a third), ragged lane counts, and the
+    same lanes through fixed_prod_dispatch, which sorts them by group."""
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.modctx import ModCtx
+
+    L = pr.LANE_TILE
+    rnd = random.Random(20 + L)
+    bits, G = 768, 3
+    ns = np.asarray([rnd.getrandbits(bits) | 1 | (1 << (bits - 1)) for _ in range(G)],
+                    dtype=object)
+    g = np.asarray([[rnd.getrandbits(bits) % int(n) for n in ns]], dtype=object)
+    tabs = ModCtx.from_ints(ns, bits, dev).make_tables_rns(g, 64)
+    cap = {}
+    real = pr.fixed_call
+    monkeypatch.setattr(pr, "fixed_call", lambda *a: cap.setdefault("a", a) and real(*a))
+    for B in (L - 1, L + 1, 3 * L + 1):
+        gmap = np.asarray([(i * 7 + i // 3) % G for i in range(B)])
+        e = np.asarray([rnd.getrandbits(64) for _ in range(B)], dtype=object)
+        cap.clear()
+        got = ModCtx.from_ints(ns[gmap], bits, dev).pow_fixed_prod_rns(tabs, [e], (64,),
+                                                                       gmap=gmap)
+        assert all(int(v) == pow(int(g[0, gi]), int(k), int(ns[gi]))
+                   for v, gi, k in zip(got, gmap, e))
+        ew, grow, rows, T, nwins, woffs, nb = cap["a"]
+        assert torch.equal(real(ew, grow, rows, T, nwins, woffs, nb),
+                           pr.fixed_plain(ew, grow, rows, T, nwins, woffs, nb))
+        # unsorted: every tile mixes the three groups
+        perm = torch.as_tensor(np.argsort(np.argsort(gmap, kind="stable")), device=dev)
+        args = (ew[perm], grow[perm], rows[perm], T, nwins, woffs, nb)
+        assert torch.equal(real(*args), pr.fixed_plain(*args))

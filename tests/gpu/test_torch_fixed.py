@@ -14,6 +14,7 @@ import torch
 
 from tpu_mpc_torch.core import rns as trns
 from tpu_mpc_torch.core.modctx import DeferredLaunch, ModCtx
+from tpu_mpc_torch.core.pallas_rns import LANE_TILE
 from tpu_mpc_torch.utils.ct import scrub_array
 from tpu_mpc_torch.utils.rng import SessionRng
 from tpu_mpc_torch.zk import range_proofs as rp
@@ -94,6 +95,21 @@ def test_fixed_base_equals_reference(monkeypatch, bits):
     got = call(e, gmap)
     assert (got == want).all()
     assert (got == _pows(g[gmap], e, n_s)).all()
+    # K2's window split (chunk products multiplied in order): the inputs the
+    # dispatch hands K2 (lanes sorted by group), decoded after every split
+    from tpu_mpc_torch.core import pallas_rns as tpr
+
+    seen = []
+    real = tpr.fixed_call
+    monkeypatch.setattr(tpr, "fixed_call", lambda *a: seen.append(a) or real(*a))
+    call(e, gmap)
+    ew, grow, rows, T, nwins, woffs, nb = seen[-1]
+    order = np.argsort(gmap, kind="stable")
+    assert grow.tolist() == gmap[order].tolist() and sum(nwins) == 2
+    for split in (1, 2):
+        cols = tpr.fixed_plain(ew, grow, rows, T, nwins, woffs, nb, split=split)
+        vals = trns.RnsLazy((cols,), (4,), n_s[order], trns.RnsParams(bits).MA).ints()
+        assert (vals == want[order]).all()
     with pytest.raises(ValueError, match="group rows"):
         call(e, gmap + 1)
     with pytest.raises(ValueError, match="exceeds"):
@@ -229,3 +245,39 @@ def test_bob_proof_with_table_randomness(monkeypatch):
     assert rp.bob_verify(proof, a_enc, mta_enc, ek, stmt).all()
     proof.s2 = proof.s2 + np.asarray([0, 1], dtype=object)
     assert rp.bob_verify(proof, a_enc, mta_enc, ek, stmt).tolist() == [True, False]
+
+
+@pytest.mark.parametrize("B", [1, LANE_TILE - 1, LANE_TILE + 1])
+def test_k2_lane_tile_padding_and_group_sort_keep_the_callers_order(monkeypatch, B):
+    """fixed_prod_dispatch hands K2 its lanes sorted by group row (so that a
+    lane tile holds one or two key groups) and returns the output in the
+    caller's order; fixed_call pads to whole lane tiles with exponent 0 and
+    the last lane's group row.  256 bits, G = 3, an unsorted gmap, ragged
+    lane counts 1, L - 1 and L + 1, python pow as the oracle."""
+    from tpu_mpc_torch.core import pallas_rns as tpr
+
+    L = tpr.LANE_TILE
+    rng = np.random.default_rng(40 + B)
+    bits, G = 256, 3
+    ns = _moduli(rng, bits, G)
+    g = np.asarray([[_rand(rng, bits) % int(n) for n in ns]], dtype=object)
+    tabs = ModCtx.from_ints(ns, bits, "cpu").make_tables_rns(g, 16)
+    seen = []
+    real = tpr.fixed_call
+    monkeypatch.setattr(tpr, "fixed_call", lambda *a: seen.append(a) or real(*a))
+    gmap = np.asarray([(5 * i + 2) % G for i in range(B)])
+    n_s = ns[gmap]
+    e = np.asarray([_rand(rng, 16) for _ in range(B)], dtype=object)
+    got = ModCtx.from_ints(n_s, bits, "cpu").pow_fixed_prod_rns(tabs, [e], (16,), gmap=gmap)
+    assert (got == _pows(g[0, gmap], e, n_s)).all()
+    ew, grow, rows, T, nwins, woffs, nb = seen[-1]
+    assert grow.tolist() == sorted(gmap.tolist())
+    if B > 1:   # per-lane moduli travel with their lanes
+        order = np.argsort(gmap, kind="stable")
+        want_rows = trns.RnsCtx.from_ints(n_s[order], bits, "cpu").rows
+        assert torch.equal(rows, want_rows)
+    ep, gp, rp = tpr.k2_tiles(ew, grow, rows)
+    assert ep.shape[0] % L == 0 and ep.shape[0] - B < L
+    assert not ep[B:].any() and bool((gp[B:] == grow[-1]).all())
+    assert torch.equal(tpr.fixed_plain(ep, gp, rp, T, nwins, woffs, nb)[:B],
+                       tpr.fixed_plain(ew, grow, rows, T, nwins, woffs, nb))

@@ -43,6 +43,24 @@ def test_chip_smoke_imports_no_jax_no_reference():
     assert "BAD []" in out.stdout, out.stdout
 
 
+
+def test_kernel_ab_imports_no_jax_no_reference():
+    """kernel_ab.py (the card's A/B timing of K1 and K2) stands alone too,
+    and refuses to run without a card."""
+    probe = ("import sys, importlib.util as u\n"
+             "spec = u.spec_from_file_location('kernel_ab', 'kernel_ab.py')\n"
+             "m = u.module_from_spec(spec); spec.loader.exec_module(m)\n"
+             "import torch\n"
+             "rc = m.main() if not torch.cuda.is_available() else 1\n"
+             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
+             "or k == 'tpu_mpc' or k.startswith('tpu_mpc.')]\n"
+             "print('BAD', sorted(bad), 'RC', rc)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe, "."], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] RC 1" in out.stdout, out.stdout
+
 def test_default_device_is_cuda_and_raises_without_it():
     import torch
 

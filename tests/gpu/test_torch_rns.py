@@ -5,6 +5,7 @@ and off, and once its Pallas dispatch in interpret mode."""
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_mpc_torch.core import pallas_rns as tpr
 from tpu_mpc_torch.core import rns as trns
@@ -163,3 +164,144 @@ def test_k1_plain_matches_reference_pallas_interpret(monkeypatch):
     want = jrns.rns_exp_dispatch(jrns.RnsCtx.from_ints(ns, 256), ns, b, e, 16).ints()
     got = trns.rns_exp_dispatch(trns.RnsCtx.from_ints(ns, 256, "cpu"), ns, b, e, 16).ints()
     assert (got == want).all() and (got == _pows(b, e, ns)).all()
+
+
+# --------------------------------------------------------------------------
+# the host side of K1's and K2's tensor-core multiply (csrc/rns_field.cuh)
+# --------------------------------------------------------------------------
+
+def _unfrag_planes(buf, par):
+    """Inverse of RnsParams.plane_bytes: [W1^T, W2^T, Wbin^T] as int64
+    [MT*16, KT*32] matrices recombined from their lo and hi planes."""
+    MT, KT = par.MT, par.KT
+    rows, cols = trns._FRAG
+    n_ext = KT * 2 * MT * 2 * 512
+    ext = buf[:n_ext].reshape(KT, 2, MT, 2, 512).astype(np.int64)
+    dec = buf[n_ext:].reshape(KT, MT, 2, 512).astype(np.int64)
+    out = []
+    for chunks in (ext[:, 0], ext[:, 1], dec):                         # [KT, MT, 2, 512]
+        M = np.zeros((MT, KT, 16, 32), np.int64)
+        v = chunks[:, :, 0] + (chunks[:, :, 1] << 8)                   # [KT, MT, 512]
+        M[:, :, rows, cols] = v.transpose(1, 0, 2).reshape(MT, KT, 32, 4, 4)
+        out.append(M.transpose(0, 2, 1, 3).reshape(MT * 16, KT * 32))
+    return out
+
+
+def _bred(x, p, m):
+    """Barrett as the kernels run it: x < 2^32, m = floor(2^32 / p), the
+    quotient estimate low by at most one."""
+    assert bool((x >= 0).all()) and bool((x < (1 << 32)).all())
+    r = x - ((x * m) >> 32) * p
+    assert bool((r < 2 * p).all())
+    return torch.where(r >= p, r - p, r)
+
+
+def _fold(p00, pm, p11, p, m):
+    """p00 + 2^8 pm + 2^16 p11 mod p in three Barrett steps."""
+    h = pm + (_bred(p11, p, m) << 8)
+    return _bred(p00 + (_bred(h, p, m) << 8), p, m)
+
+
+def _planes(xi, M, kdim):
+    """The three s32 planes of M[:, :kdim] . xi^T from u8 chunks, bounds checked."""
+    M = torch.as_tensor(M[:, :kdim])
+    xl, xh, ml, mh = xi & 255, xi >> 8, M & 255, M >> 8
+    p00, pm, p11 = xl @ ml.T, xh @ ml.T + xl @ mh.T, xh @ mh.T
+    for p in (p00, pm, p11):
+        assert int(p.max()) < (1 << 26) and int(p.min()) >= 0
+    return p00, pm, p11
+
+
+def _tile_montmul(x, y, cp, par):
+    """The kernel's montmul in int64 torch: byte-chunk planes against the
+    u8 planes the card reads (recombined from the fragment-ordered buffer),
+    Barrett reductions, the redundant channel from (p00 + 2^8 pm) & 0xFFFF."""
+    W1T, W2T, _ = _unfrag_planes(par.plane_bytes(), par)
+    K, Kp = par.K, par.Kp
+    pA, pB = torch.as_tensor(par.pA_arr), torch.as_tensor(par.pB_arr)
+    mA, mB = torch.as_tensor(par.mA), torch.as_tensor(par.mB)
+    mul = lambda a, b, p, m: _bred(a * b, p, m)
+    xA, xB, xr = x[..., :K], x[..., K:K + Kp], x[..., K + Kp]
+    yA, yB, yr = y[..., :K], y[..., K:K + Kp], y[..., K + Kp]
+    xi1 = mul(mul(xA, yA, pA, mA), cp["cA"], pA, mA)
+    sB, sr = mul(xB, yB, pB, mB), (xr * yr) & 0xFFFF
+    p00, pm, p11 = _planes(xi1, W1T, K)
+    qh = _fold(p00[:, :Kp], pm[:, :Kp], p11[:, :Kp], pB, mB)
+    num = sB + mul(qh, cp["N_B"], pB, mB)
+    tB = mul(torch.where(num >= pB, num - pB, num), torch.as_tensor(par.invMA_B), pB, mB)
+    xi2 = mul(tB, torch.as_tensor(par.invMBj), pB, mB)
+    qr = (p00[:, Kp] + (pm[:, Kp] << 8)) & 0xFFFF
+    tr = (((sr + qr * cp["N_r"]) & 0xFFFF) * par.invMA_r) & 0xFFFF
+    p00, pm, p11 = _planes(xi2, W2T, Kp)
+    tA = _fold(p00[:, :K], pm[:, :K], p11[:, :K], pA, mA)
+    alpha = ((((p00[:, K] + (pm[:, K] << 8)) & 0xFFFF) - tr) & 0xFFFF) * par.invMB_r & 0xFFFF
+    corr = mul(alpha[:, None], torch.as_tensor(par.MB_A), pA, mA)
+    return torch.cat([torch.where(tA >= corr, tA - corr, tA + pA - corr), tB, tr[:, None]], -1)
+
+
+@pytest.mark.parametrize("bits", [2048, 4096])
+def test_k1_planes_recombine_to_the_extension_matrices(bits):
+    par = trns.RnsParams(bits)
+    buf = par.plane_bytes()
+    assert buf.dtype == np.uint8
+    assert buf.nbytes == 2 * par.KT * par.MT * 2 * 512 + par.KT * par.MT * 2 * 512
+    W1T, W2T, WbT = _unfrag_planes(buf, par)
+    for got, W in ((W1T, par.W1), (W2T, par.W2), (WbT, np.asarray(par.Wbin, np.int64))):
+        assert np.array_equal(got[:W.shape[1], :W.shape[0]], W.T)
+        assert not got[W.shape[1]:].any() and not got[:, W.shape[0]:].any()
+    assert par.MT * 16 >= max(par.Kp + 1, par.Lout) and par.KT * 32 >= par.Kp
+    assert (par.MT, par.KT) == {2048: (9, 5), 4096: (17, 9)}[bits]
+
+
+@pytest.mark.parametrize("bits", [2048, 4096])
+def test_k1_tile_montmul_emulation_equals_rns_montmul(bits):
+    """The kernel's arithmetic (u8 chunk planes, Barrett folds), emulated in
+    int64, equals rns_montmul on random residues and on the worst case,
+    every channel at p - 1; the decode's chunk planes equal its dot, and the
+    prologue's two-step 64-bit Barrett equals %."""
+    par = trns.RnsParams(bits)
+    rng = np.random.default_rng(bits)
+    ns = _moduli(rng, bits, 4)
+    cp = trns.ctx_parts(trns.RnsCtx.from_ints(ns, bits, "cpu").rows, par)
+    cs = trns.dev_consts(par, "cpu")
+    mods = np.concatenate([par.pA_arr, par.pB_arr, [1 << 16]])
+    rnd = torch.as_tensor(rng.integers(0, 1 << 62, (4, par.CH)) % mods)
+    worst = torch.as_tensor(np.broadcast_to(mods - 1, (4, par.CH)).copy())
+    for x, y in ((rnd, rnd.flip(0)), (worst, worst)):
+        want = trns.rns_montmul(x, y, cp, cs, par)
+        assert torch.equal(_tile_montmul(x, y, cp, par), want)
+    # decode: xi . Wbin from the chunk planes, exact in 64 bits
+    xi = worst[:, :par.K]
+    p00, pm, p11 = _planes(xi, _unfrag_planes(par.plane_bytes(), par)[2], par.K)
+    assert torch.equal((p00 + (pm << 8) + (p11 << 16))[:, :par.Lout], trns._dot(xi, cs["Wbin"]))
+    # prologue: limb sums < Lin * 2^32 < 2^40, reduced as bred(bred(lo) + hi * (2^32 mod p))
+    limbs = torch.full((2, par.Lin), 0xFFFF, dtype=torch.int64)
+    s = limbs @ torch.as_tensor(par.W16A)
+    pA, mA = torch.as_tensor(par.pA_arr), torch.as_tensor(par.mA)
+    c32 = (1 << 32) - pA * mA
+    red = _bred(_bred(s & 0xFFFFFFFF, pA, mA) + (s >> 32) * c32, pA, mA)
+    assert int(s.max()) < (1 << 40) and torch.equal(red, s % pA)
+
+
+@pytest.mark.parametrize("B", [1, tpr.LANE_TILE - 1, tpr.LANE_TILE + 1])
+def test_k1_lane_tile_padding_keeps_the_callers_lanes(B):
+    """exp_call pads a batch to whole lane tiles (zero bases and exponents,
+    copies of the last ctx row); the padded lanes leave the caller's lanes,
+    in the caller's order, as they were."""
+    L = tpr.LANE_TILE
+    rng = np.random.default_rng(B)
+    bits = 256
+    par = trns.RnsParams(bits)
+    ns = _moduli(rng, bits, B)
+    rows = trns.RnsCtx.from_ints(ns, bits, "cpu").rows
+    b = np.asarray([_rand(rng, bits) % int(n) for n in ns], dtype=object)
+    e = np.asarray([_rand(rng, 32) for _ in range(B)], dtype=object)
+    x = torch.as_tensor(trns.batch_to_limbs(b, par.Lin))
+    ew = torch.as_tensor(tpr._pack_words(trns.batch_to_limbs(e, 2)))
+    xp, ep, rp = tpr.k1_tiles(x, ew, rows)
+    assert xp.shape[0] % L == 0 and xp.shape[0] - B < L
+    assert rp.shape[0] == (xp.shape[0] if B > 1 else 1)     # one row: shared by every lane
+    got = tpr.exp_plain(xp, ep, rp, bits)[:B]
+    assert torch.equal(got, tpr.exp_plain(x, ew, rows, bits))
+    lz = trns.RnsLazy((got,), (B,), ns, par.MA)
+    assert (lz.ints() == _pows(b, e, ns)).all()

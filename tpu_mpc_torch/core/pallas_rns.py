@@ -4,21 +4,26 @@
 K1 (variable-base modexp) replaces tpu_mpc/core/pallas_rns.py:_exp_kernel;
 its CUDA source is csrc/rns_exp.cu.  K2 (fixed-base window product, zero
 squarings) replaces _fixed_kernel; its source is csrc/rns_fixed.cu.  Both
-run the one Montgomery multiply of csrc/rns_field.cuh; the source notes say
-what bounds them on the H100 and how the design answers.  exp_call and
-fixed_call launch them for CUDA tensors; for CPU tensors they take
-exp_plain and fixed_plain, the same functions in PyTorch ops, which are
+run the one Montgomery multiply of csrc/rns_field.cuh on a tile of
+LANE_TILE = 8 lanes per thread block, its base extensions as exact u8 chunk
+products on the tensor cores; the source notes say what bounds them on the
+H100 and how the design answers.  exp_call and fixed_call launch them for
+CUDA tensors (padding the batch to whole lane tiles); for CPU tensors they
+take exp_plain and fixed_plain, the same functions in PyTorch ops, which are
 also what chip_smoke.py holds the kernels against, bit for bit.
 
 The reference's dispatch glue maps as follows: _pack_words is kept;
 _unpack_residues and _prep_x (binary -> residues, channel-major padding)
 are K1's prologue, which reads the base's 16-bit limbs directly; _prep_ctx
 and _ctx_blocks become RnsCtx rows and _ctx_blocks below; _planes_out is
-the kernels' exact column-sum output; _finish_reduce is below.  K2's
-_prep_tables (per-call concatenation into channel-Montgomery bf16 chunks,
-cached by table identity) has no counterpart: the tables already lie on the
-device in the layout K2 reads, one pointer per base, and each lane reads its
-key group's row through `grow` (the TPU kernel's gofs / 16).  The TPU's
+the kernels' exact column-sum output; _finish_reduce is below.  The TPU
+kernels' bf16 chunk constants become the u8 planes of core/rns.py:
+RnsParams.plane_bytes.  K2's _prep_tables (per-call concatenation into
+channel-Montgomery bf16 chunks, cached by table identity) has no
+counterpart: the tables already lie on the device in the layout K2 reads,
+one pointer per base, and each lane reads its key group's row through
+`grow` (the TPU kernel's gofs / 16); fixed_prod_dispatch sorts the lanes by
+group row so that a lane tile stages one or two groups.  The TPU's
 G * 16 <= 512 cap was a VMEM limit and is gone: the tables stay in global
 memory.
 
@@ -53,6 +58,9 @@ from .rns import (
 )
 
 _NENT = 16
+# lanes per thread block of K1 and K2 (csrc/rns_field.cuh:LANES, the N of
+# one mma): the wrappers pad a batch to whole tiles
+LANE_TILE = 8
 _SHIFTS_MSB = (28, 24, 20, 16, 12, 8, 4, 0)   # window shifts in one e-word
 
 
@@ -98,6 +106,24 @@ def _i32(t):
     return torch.where(t >= (1 << 31), t - (1 << 32), t).to(torch.int32).contiguous()
 
 
+def _pad_lanes(t, n: int, last: bool = False):
+    """t [B, ...] -> [B + n, ...]: n more rows of zeros, or copies of the
+    last row (ctx rows and group rows, so that padding lanes compute on a
+    valid modulus and group)."""
+    if n == 0:
+        return t
+    tail = tuple(t.shape[1:])
+    fill = t[-1:].expand((n,) + tail) if last else t.new_zeros((n,) + tail)
+    return torch.cat([t, fill])
+
+
+def k1_tiles(x, e, rows):
+    """K1's inputs padded to whole lane tiles: (x, e, rows)."""
+    pad = -x.shape[0] % LANE_TILE
+    rows = _pad_lanes(rows, pad, last=True) if rows.shape[0] != 1 else rows
+    return _pad_lanes(x, pad), _pad_lanes(e, pad), rows
+
+
 def exp_call(x, e, rows, nbits: int, emit_planes: bool = True):
     """K1 on CUDA tensors; the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -115,20 +141,26 @@ def exp_call(x, e, rows, nbits: int, emit_planes: bool = True):
                            dtype=torch.int64, device=x.device)
     lib = kernels.lib("rns")
     cs = dev_consts(par, x.device)
-    x32, e32, r32 = _i32(x), _i32(e), _i32(rows)
-    cols = torch.empty((B, par.Lout) if emit_planes else (1,), dtype=torch.int64,
+    # every converted input stays referenced until the launch is enqueued
+    xp, ep, rp = k1_tiles(x, e, rows)
+    Bp = xp.shape[0]
+    x32, e32, r32 = _i32(xp), _i32(ep), _i32(rp)
+    # the window table's global home, where it does not fit in shared memory
+    ntab = lib.k1_tab_words(Bp, par.K, par.Kp, par.Lin, par.Lout, par.MT, par.KT)
+    tab = torch.empty(max(ntab, 1), dtype=torch.int32, device=x.device)
+    cols = torch.empty((Bp, par.Lout) if emit_planes else (1,), dtype=torch.int64,
                        device=x.device)
-    res = torch.empty((1,) if emit_planes else (B, par.CH), dtype=torch.int32,
+    res = torch.empty((1,) if emit_planes else (Bp, par.CH), dtype=torch.int32,
                       device=x.device)
     rc = lib.k1_exp(
         x32.data_ptr(), e32.data_ptr(), r32.data_ptr(), int(rows.shape[0] != 1),
-        cs["flat32"].data_ptr(), B, par.K, par.Kp, par.Lin, par.Lout, e.shape[1],
-        par.invMA_r, par.invMB_r, int(emit_planes), cols.data_ptr(),
-        res.data_ptr(), kernels.stream_handle(x.device),
+        cs["flat32"].data_ptr(), cs["planes"].data_ptr(), Bp, par.K, par.Kp, par.Lin,
+        par.Lout, par.MT, par.KT, e.shape[1], par.invMA_r, par.invMB_r, int(emit_planes),
+        tab.data_ptr(), cols.data_ptr(), res.data_ptr(), kernels.stream_handle(x.device),
     )
     kernels.check(rc, "K1 k1_exp")
     kernels.count("K1")
-    return cols if emit_planes else res.to(torch.int64)
+    return cols[:B] if emit_planes else res[:B].to(torch.int64)
 
 
 def _values_shared(n_b: np.ndarray) -> bool:
@@ -211,20 +243,47 @@ def exp_dispatch(ctx, n_ints, base_ints, exp_ints, ebits: int,
 _K2_MAX_BASES = 4   # csrc/rns_fixed.cu:MAX_BASES
 
 
-def fixed_plain(e, grow, rows, tables, nwins, woffs, nbits: int):
+def k2_split(B: int, nw: int) -> int:
+    """Chunks K2 splits a product of nw windows into: a block per chunk and
+    lane tile, enough to fill ~128 SMs, with at least 16 windows a chunk and
+    at most 8 chunks."""
+    nblk = max(1, -(-B // LANE_TILE))
+    return max(1, min(8, -(-128 // nblk), nw // 16))
+
+
+def fixed_plain(e, grow, rows, tables, nwins, woffs, nbits: int, split=None):
     """The function K2 computes, in PyTorch ops (same values, any device):
-    for each base, windows j = 0 .. nwin-1 LSB-first, one Montgomery
-    multiply by T[j][digit][grow]; then the decode epilogue."""
+    the windows of all bases in one sequence (base after base, windows
+    j = 0 .. nwin-1 LSB-first), split into `split` chunks of equal length
+    (default: k2_split, as fixed_call); each chunk is a chain of Montgomery
+    multiplies by T[j][digit][grow] from the Montgomery one, the chunk
+    products are multiplied in order, then the decode epilogue."""
     par = RnsParams(nbits)
     cs = dev_consts(par, e.device)
     cp = ctx_parts(rows, par)
-    acc = cp["mon"].expand(e.shape[0], par.CH)
+    one = cp["mon"].expand(e.shape[0], par.CH)
     g = grow.long()
-    for T, nwin, woff in zip(tables, nwins, woffs):
-        for j in range(nwin):
+    seq = [(T, woff, j) for T, nwin, woff in zip(tables, nwins, woffs) for j in range(nwin)]
+    if split is None:
+        split = k2_split(e.shape[0], len(seq))
+    chunk = -(-len(seq) // split)
+    acc = None
+    for p in range(split):
+        part = one
+        for T, woff, j in seq[p * chunk:(p + 1) * chunk]:
             d = (e[:, woff + j // 8] >> (WINDOW * (j % 8))) & (_NENT - 1)
-            acc = rns_montmul(acc, T[j, d, g].long(), cp, cs, par)
+            part = rns_montmul(part, T[j, d, g].long(), cp, cs, par)
+        acc = part if acc is None else rns_montmul(acc, part, cp, cs, par)
     return rns_from_mont_cols(acc, cp, cs, par)
+
+
+def k2_tiles(e, grow, rows):
+    """K2's inputs padded to whole lane tiles: (e, grow, rows).  Padding
+    lanes take exponent 0 and the last lane's group row, so that they add no
+    key group to the last tile."""
+    pad = -e.shape[0] % LANE_TILE
+    rows = _pad_lanes(rows, pad, last=True) if rows.shape[0] != 1 else rows
+    return _pad_lanes(e, pad), _pad_lanes(grow, pad, last=True), rows
 
 
 def fixed_call(e, grow, rows, tables, nwins, woffs, nbits: int):
@@ -253,20 +312,31 @@ def fixed_call(e, grow, rows, tables, nwins, woffs, nbits: int):
     lib = kernels.lib("rns_fixed")
     cs = dev_consts(par, e.device)
     # every converted input stays referenced until the launch is enqueued
-    e32, g32, r32 = _i32(e), _i32(grow), _i32(rows)
-    tabs = [T.contiguous() for T in tables]
+    ep, gp, rp = k2_tiles(e, grow, rows)
+    Bp = ep.shape[0]
+    e32, g32, r32 = _i32(ep), _i32(gp), _i32(rp)
+    # the kernel stages table rows by their 16-byte lines
+    tabs = [T if T.is_contiguous() and T.data_ptr() % 16 == 0 else T.clone()
+            for T in tables]
     n = len(tabs)
     ptrs = (ctypes.c_uint64 * n)(*(T.data_ptr() for T in tabs))
-    cols = torch.empty((B, par.Lout), dtype=torch.int64, device=e.device)
+    # the window chunks and where their products meet (csrc/rns_fixed.cu)
+    split = k2_split(B, sum(nwins))
+    partial = torch.empty(Bp * split * par.CH if split > 1 else 1, dtype=torch.int32,
+                          device=e.device)
+    ticket = torch.zeros(Bp // LANE_TILE, dtype=torch.int32, device=e.device)
+    cols = torch.empty((Bp, par.Lout), dtype=torch.int64, device=e.device)
     rc = lib.k2_fixed(
         e32.data_ptr(), ne2, g32.data_ptr(), r32.data_ptr(), int(rows.shape[0] != 1),
-        cs["flat32"].data_ptr(), B, par.K, par.Kp, par.Lin, par.Lout, par.invMA_r,
-        par.invMB_r, n, ptrs, (ctypes.c_int * n)(*nwins), (ctypes.c_int * n)(*woffs), G,
-        cols.data_ptr(), kernels.stream_handle(e.device),
+        cs["flat32"].data_ptr(), cs["planes"].data_ptr(), Bp, par.K, par.Kp, par.Lin,
+        par.Lout, par.MT, par.KT, par.invMA_r, par.invMB_r, n, ptrs,
+        (ctypes.c_int * n)(*nwins), (ctypes.c_int * n)(*woffs), G, split,
+        partial.data_ptr(), ticket.data_ptr(), cols.data_ptr(),
+        kernels.stream_handle(e.device),
     )
     kernels.check(rc, "K2 k2_fixed")
     kernels.count("K2")
-    return cols
+    return cols[:B]
 
 
 def fixed_prod_dispatch(ctx, n_ints, tables, exps, ebits_list, nbits: int,
@@ -306,9 +376,22 @@ def fixed_prod_dispatch(ctx, n_ints, tables, exps, ebits_list, nbits: int,
         woffs.append(off)
         off += ews[-1].shape[1]
     dev = ctx.rows.device
-    e = torch.as_tensor(np.concatenate(ews, axis=1), device=dev)
-    grow = torch.as_tensor(np.array(gm), device=dev)
+    ew = np.concatenate(ews, axis=1)
     rows = _ctx_blocks(ctx, shape, n_b)
+    # lanes sorted by group row (public), so that a lane tile of K2 holds one
+    # or two key groups; the output returns to the caller's order
+    order = np.argsort(gm, kind="stable")
+    perm = lead > 1 and bool((order != np.arange(lead)).any())
+    if perm:
+        ew, gm = ew[order], gm[order]
+        if rows.shape[0] > 1:
+            rows = rows[torch.as_tensor(order, device=dev)]
+    e = torch.as_tensor(ew, device=dev)
+    grow = torch.as_tensor(np.array(gm), device=dev)
     tabs = [t.reshape(t.shape[0], _NENT, G, t.shape[-1]) for t in tables]
     cols = fixed_call(e, grow, rows, tabs, nwins, woffs, nbits)
+    if perm:
+        inv = np.empty_like(order)
+        inv[order] = np.arange(lead)
+        cols = cols[torch.as_tensor(inv, device=dev)]
     return RnsLazy(parts=(cols,), shape=shape, n_b=n_b, MA=par.MA)

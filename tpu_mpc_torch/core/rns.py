@@ -16,9 +16,12 @@ residues bit for bit.  Invariant: inputs/outputs < lam*N, lam = 2(K+2).
 Port notes:
   * u32 channel values are carried in int64 tensors (torch on the CPU has no
     uint32 `+`, `>>` or `>=`).
-  * The extension dots are float64 matrix products: every term is < 2^32 and
-    every sum < K * 2^32 < 2^53, so float64 is exact on both the CPU and the
-    card (no int64 matmul exists on CUDA).
+  * The extension dots of the plain functions are float64 matrix products:
+    every term is < 2^32 and every sum < K * 2^32 < 2^53, so float64 is
+    exact on both the CPU and the card (no int64 matmul exists on CUDA).
+    The kernels compute the same sums from u8 chunk planes on the tensor
+    cores (RnsParams.plane_bytes, csrc/rns_field.cuh) and reduce with
+    Barrett constants (RnsParams.mA, mB) instead of a division.
   * RnsCtx holds one row of per-modulus constants in the layout K1 and K2
     read.
   * Fixed-base tables (rns_make_tables) are int32 tensors [nw, 16, ...batch,
@@ -128,14 +131,43 @@ class RnsParams:
             [[pow(2, 16 * l, p) for p in self.pA] for l in range(L)], dtype=np.int64)
         self.W16B = np.asarray(
             [[pow(2, 16 * l, p) for p in self.pB] for l in range(L)], dtype=np.int64)
+        # Barrett constants floor(2^32 / p) of every channel (csrc/rns_field.cuh:bred)
+        self.mA = (1 << 32) // self.pA_arr
+        self.mB = (1 << 32) // self.pB_arr
+        # tensor-core tiles of the extension and decode dots (csrc/rns_field.cuh):
+        # MT m-tiles of 16 output channels, KT k-tiles of 32 summed channels
+        self.MT = max(-(-(Kp + 1) // 16), -(-(K + 1) // 16))
+        self.KT = max(-(-K // 32), -(-Kp // 32))
 
     def const_vector(self) -> np.ndarray:
-        """Every shared constant in the one flat layout K1 reads:
-        pA, pB, invMAk, invMA_B, invMBj, MB_A, W1, W2, W16A, W16B, Wbin."""
-        parts = [self.pA_arr, self.pB_arr, self.invMAk, self.invMA_B,
-                 self.invMBj, self.MB_A, self.W1, self.W2, self.W16A,
-                 self.W16B, self.Wbin]
+        """Every per-channel constant in the one flat u32 layout K1 and K2
+        read: pA, pB, mA, mB, invMAk, invMA_B, invMBj, MB_A, W16A, W16B."""
+        parts = [self.pA_arr, self.pB_arr, self.mA, self.mB, self.invMAk, self.invMA_B,
+                 self.invMBj, self.MB_A, self.W16A, self.W16B]
         return np.concatenate([np.asarray(p, np.int64).reshape(-1) for p in parts])
+
+    def plane_matrices(self) -> list:
+        """The three matrices the kernels multiply on the tensor cores, each
+        transposed to [output channel, summed channel] and zero-padded to
+        [MT*16, KT*32]: W1^T (A -> B|r), W2^T (B -> A|r), Wbin^T (decode)."""
+        out = []
+        for W in (self.W1, self.W2, np.asarray(self.Wbin, np.int64)):
+            M = np.zeros((self.MT * 16, self.KT * 32), np.int64)
+            M[:W.shape[1], :W.shape[0]] = W.T
+            out.append(M)
+        return out
+
+    def plane_bytes(self) -> np.ndarray:
+        """The u8 planes (lo and hi byte of every entry) of plane_matrices()
+        in mma.sync fragment order, one flat uint8 buffer: first the
+        extension chunks [KT, 2 (W1^T, W2^T), MT, 2 (lo, hi), 512], ordered by
+        k-tile so that a prefix of whole k-tiles can stay in shared memory,
+        then the decode chunks [KT, MT, 2, 512].  A 512-byte chunk is one
+        16 x 32 tile as the 32 threads of a warp hold it (see _FRAG)."""
+        W1T, W2T, WbT = (_frag_tiles(M, self.MT, self.KT) for M in self.plane_matrices())
+        ext = np.stack([W1T, W2T], axis=0).transpose(3, 0, 2, 1, 4)   # [KT, 2, MT, 2, 512]
+        dec = WbT.transpose(2, 1, 0, 3)                                # [KT, MT, 2, 512]
+        return np.concatenate([ext.reshape(-1), dec.reshape(-1)]).astype(np.uint8)
 
     def to_residues(self, xs) -> np.ndarray:
         """object ints [...] -> [..., CH] residues (A | B | r)."""
@@ -144,6 +176,25 @@ class RnsParams:
         mods = list(self.pA) + list(self.pB) + [P_R]
         out = np.asarray([[int(v) % m for m in mods] for v in flat], dtype=np.int64)
         return out.reshape(xs.shape + (self.CH,))
+
+
+def _frag_index():
+    """(row, col) of byte b of register q of thread l in a 16 x 32 u8 tile
+    held as the A operand of mma.sync.m16n8k32 (PTX ISA, fragment layout of
+    .u8 A): row = l/4 + 8 (q & 1), col = 4 (l % 4) + b + 16 (q >> 1)."""
+    lane, q, b = np.meshgrid(np.arange(32), np.arange(4), np.arange(4), indexing="ij")
+    return lane // 4 + 8 * (q & 1), 4 * (lane % 4) + b + 16 * (q >> 1)
+
+
+_FRAG = _frag_index()
+
+
+def _frag_tiles(M: np.ndarray, MT: int, KT: int) -> np.ndarray:
+    """[MT*16, KT*32] entries < 2^16 -> [2 (lo, hi), MT, KT, 512] bytes in
+    fragment order (thread l's 16 bytes at offset 16 l)."""
+    tiles = M.reshape(MT, 16, KT, 32).transpose(0, 2, 1, 3)          # [MT, KT, 16, 32]
+    frag = tiles[:, :, _FRAG[0], _FRAG[1]].reshape(MT, KT, 512)
+    return np.stack([frag & 0xFF, frag >> 8])
 
 
 _DEV_CACHE: dict = {}
@@ -162,8 +213,10 @@ def dev_consts(par: RnsParams, device) -> dict:
             "invMBj": t(par.invMBj), "MB_A": t(par.MB_A),
             "W1": f(par.W1), "W2": f(par.W2), "W16A": f(par.W16A),
             "W16B": f(par.W16B), "Wbin": f(par.Wbin),
-            # the flat u32 vector the CUDA kernel reads
+            # what the CUDA kernels read: the flat u32 per-channel constants
+            # and the u8 tensor-core planes of W1^T, W2^T and Wbin^T
             "flat32": torch.as_tensor(par.const_vector().astype(np.int32), device=device),
+            "planes": torch.as_tensor(par.plane_bytes(), device=device),
         }
         _DEV_CACHE[key] = hit
     return hit

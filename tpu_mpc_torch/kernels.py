@@ -105,17 +105,19 @@ _PI = ctypes.POINTER(ctypes.c_int)
 
 _SIGNATURES = {
     "rns": {
-        # x, e, ctx, ctx_per_lane, cst, B, K, Kp, Lin, Lout, ne2,
-        # invMA_r, invMB_r, emit_planes, out_cols, out_res, stream
-        "k1_exp": [_VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
-                   _U, _U, _I, _VP, _VP, _VP],
+        # x, e, ctx, ctx_per_lane, cst, planes, B, K, Kp, Lin, Lout, MT, KT,
+        # ne2, invMA_r, invMB_r, emit_planes, tab_glob, out_cols, out_res, stream
+        "k1_exp": [_VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _U, _U, _I, _VP, _VP, _VP, _VP],
+        # B, K, Kp, Lin, Lout, MT, KT -> u32 words of K1's global window table
+        "k1_tab_words": [_I, _I, _I, _I, _I, _I, _I],
     },
     "rns_fixed": {
-        # e, ne2, grow, ctx, ctx_per_lane, cst, B, K, Kp, Lin, Lout,
-        # invMA_r, invMB_r, nbases, tabs (host), nwin (host), woff (host), G,
-        # out_cols, stream
-        "k2_fixed": [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I,
-                     _U, _U, _I, _PU64, _PI, _PI, _I, _VP, _VP],
+        # e, ne2, grow, ctx, ctx_per_lane, cst, planes, B, K, Kp, Lin, Lout,
+        # MT, KT, invMA_r, invMB_r, nbases, tabs (host), nwin (host),
+        # woff (host), G, nsplit, partial, ticket, out_cols, stream
+        "k2_fixed": [_VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                     _I, _I, _U, _U, _I, _PU64, _PI, _PI, _I, _I, _VP, _VP, _VP, _VP],
     },
     "ec": {
         # pts, digits, neg, B, ns, out, stream
