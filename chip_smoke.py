@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
              lane tile (1, L - 1, L + 1; 513 for K1), with one modulus per
              lane inside a tile, K2 with three key groups in every tile,
              and K1 at 4096 bits, whose tensor-core planes partly stream
-             from L2;
+             from L2.  K3 (ns = 2 and 4, an infinity base and k = 0) and
+             K4 (bases G and BASE_POINT2, digits 0 and 255 in every lane)
+             at lane counts 1, 7, 9, 33, 257; K3 timed at 128, 256 and 512
+             lanes, K4 at 256 for both bases;
   3. slice   GG20 2-of-3 signing at 2048-bit Paillier: the bench key
              (benches/bench_key_2048.json) tiled to S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
@@ -26,7 +29,8 @@ Phases (any failure exits non-zero and prints no result line):
              pure-python ECDSA verifier; every kernel must have been
              launched in each tables pass, every kernel but K2 in each
              uniform pass.  Each timed pass prints K1's device time split by
-             operand width (2048-bit N, 4096-bit N^2).
+             operand width (2048-bit N, 4096-bit N^2) and the K3 and K4
+             launches by lane count (and ns).
 Then it prints one JSON line {"kernels": [...]}, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  It imports nothing of jax or
 of the reference package tpu_mpc.
@@ -45,6 +49,9 @@ import time
 S_SESSIONS = 128
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
+EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4 lane counts off their 8- and 16-lane blocks
+K3_TIMED = (128, 256, 512)
+K4_TIMED = (256, 512)                # the lane counts of K4 on the main path
 K2_LANES = 256                       # S*tp*(tp-1)
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
@@ -462,7 +469,7 @@ def _rand_points(dev, rnd, B):
 
     ks = np.asarray([rnd.randrange(1, hec.N) for _ in range(B)], dtype=object)
     out = pe.comb_plain(pe._comb_digits(ec.sc_from_ints(ks, dev)),
-                        pe._comb8_for(hec.G, dev))
+                        pe._comb8_for(hec.G, dev)[0])
     return out, ks
 
 
@@ -477,76 +484,105 @@ def check_ec(dev, rnd):
     B = EC_LANES
     # multiply-adds per lane: per base jac_in and a 14-add table; 33 windows
     # of 4 doublings, ns additions and ns/2 beta multiplies; jac_out
-    imad_k3 = lambda ns: B * ((ns // 2) * (JAC_IO + 14 * RCB_ADD)
-                              + 33 * (4 * RCB_DBL + ns * RCB_ADD + (ns // 2) * FE_MUL)
-                              + JAC_IO)
+    imad_k3 = lambda ns, n: n * ((ns // 2) * (JAC_IO + 14 * RCB_ADD)
+                                 + 33 * (4 * RCB_DBL + ns * RCB_ADD + (ns // 2) * FE_MUL)
+                                 + JAC_IO)
     res = {}
-    # K3, ns = 2 and 4, with an infinity base and k = 0
-    pts, pk = _rand_points(dev, rnd, 2 * B)
-    ks = [rnd.randrange(ec.Q_INT) for _ in range(2 * B)]
+    # K3, ns = 2 and 4: lane 0 an infinity base, lane 1 k = 0; exact at lane
+    # counts that are not a multiple of the 8-lane block and at the timed
+    # counts (128, 256, 512)
+    nmax = max(K3_TIMED)
+    pts, pk = _rand_points(dev, rnd, 2 * nmax)
+    ks = [rnd.randrange(ec.Q_INT) for _ in range(2 * nmax)]
     ks[1] = 0
     pts[0, 0], pts[0, 1], pts[0, 2] = 0, 0, 0
     pts[0, 0, 0] = pts[0, 1, 0] = 1                     # lane 0: infinity base
     k = ec.sc_from_ints(np.asarray(ks, dtype=object), dev)
     worst = 0
     for ns in (2, 4):
-        if ns == 2:
-            DG, NEG = pe._glv_prep(k[:B])
-            P = pts[:B, None]
-        else:
-            DGa, NEGa = pe._glv_prep(k[:B])
-            DGb, NEGb = pe._glv_prep(k[B:])
-            DG, NEG = torch.cat([DGa, DGb], 1), torch.cat([NEGa, NEGb], 1)
-            P = torch.stack([pts[:B], pts[B:]], 1)
-        out_k = pe.ladder_call(P, DG, NEG)
-        out_p = pe.ladder_plain(P, DG, NEG)
-        torch.cuda.synchronize()
-        err = _maxerr(out_k, out_p)
-        worst = max(worst, err)
-        require(err == 0, f"K3 ns={ns}: kernel != plain (max |diff| {err})")
-        got = ec.points_to_host_list(ec._from_rows(out_k[:8], (8,)))
-        for i in range(8):
-            a = None if i == 0 else hec.mul(int(pk[i]))
-            want = hec.mul(ks[i], a) if a is not None else None
-            if ns == 4:
-                want = hec.add(want, hec.mul(ks[B + i], hec.mul(int(pk[B + i]))))
-            require(got[i] == want, f"K3 ns={ns} lane {i} != host oracle")
-        ms = _events_ms(lambda: pe.ladder_call(P, DG, NEG), 3)
-        pms = _events_ms(lambda: pe.ladder_plain(P, DG, NEG), 1)
-        bms, bby = _bound(2 * (P.numel() + B * 48) + DG.numel() + NEG.numel(),
-                          imad_k3(ns))
-        log(f"K3 ns={ns} lanes={B}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
-            f"bound {bms:.5f} ms")
-        if ns == 2:
-            res["K3"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                             shape=f"{B} lanes, ns=2 (scalar_mul)")
+        for n in sorted(set(EC_RAGGED + K3_TIMED)):
+            if ns == 2:
+                DG, NEG = pe._glv_prep(k[:n])
+                P = pts[:n, None]
+            else:
+                DGa, NEGa = pe._glv_prep(k[:n])
+                DGb, NEGb = pe._glv_prep(k[nmax:nmax + n])
+                DG, NEG = torch.cat([DGa, DGb], 1), torch.cat([NEGa, NEGb], 1)
+                P = torch.stack([pts[:n], pts[nmax:nmax + n]], 1)
+            out_k = pe.ladder_call(P, DG, NEG)
+            out_p = pe.ladder_plain(P, DG, NEG)
+            torch.cuda.synchronize()
+            err = _maxerr(out_k, out_p)
+            worst = max(worst, err)
+            require(err == 0 and out_k.shape == out_p.shape,
+                    f"K3 ns={ns} lanes={n}: kernel != plain (max |diff| {err})")
+            if n not in K3_TIMED:
+                continue
+            ms = _events_ms(lambda: pe.ladder_call(P, DG, NEG), 3)
+            bms, bby = _bound(2 * (P.numel() + n * 48) + DG.numel() + NEG.numel(),
+                              imad_k3(ns, n))
+            if n != B:
+                log(f"K3 ns={ns} lanes={n}: exact; kernel {ms:.3f} ms, bound {bms:.5f} ms")
+                continue
+            got = ec.points_to_host_list(ec._from_rows(out_k[:8], (8,)))
+            for i in range(8):
+                a = None if i == 0 else hec.mul(int(pk[i]))
+                want = hec.mul(ks[i], a) if a is not None else None
+                if ns == 4:
+                    want = hec.add(want, hec.mul(ks[nmax + i], hec.mul(int(pk[nmax + i]))))
+                require(got[i] == want, f"K3 ns={ns} lane {i} != host oracle")
+            pms = _events_ms(lambda: pe.ladder_plain(P, DG, NEG), 1)
+            log(f"K3 ns={ns} lanes={n}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
+                f"bound {bms:.5f} ms")
+            if ns == 2:
+                res["K3"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                 shape=f"{n} lanes, ns=2 (scalar_mul)")
+            else:
+                res["K3"].update(ms_ns4=ms, plain_ms_ns4=pms, bound_ms_ns4=bms)
+        log(f"K3 ns={ns} lanes {', '.join(map(str, EC_RAGGED))}: exact (infinity base, k = 0)")
     res["K3"]["max_abs_err"] = worst
-    # K4 for G and BASE_POINT2
+    # K4 for G and BASE_POINT2: lane 0 k = 0 (every digit 0), lane 1 k = 1,
+    # digits 0 and 255 in two windows of every other lane
     worst = 0
     for base, name in ((hec.G, "G"), (hec.BASE_POINT2, "BASE_POINT2")):
-        kk = [rnd.randrange(ec.Q_INT) for _ in range(B)]
-        kk[0], kk[1] = 0, 1
-        dg = pe._comb_digits(ec.sc_from_ints(np.asarray(kk, dtype=object), dev))
-        tab = pe._comb8_for(base, dev)
-        out_k = pe.comb_call(dg, tab)
-        out_p = pe.comb_plain(dg, tab)
-        torch.cuda.synchronize()
-        err = _maxerr(out_k, out_p)
-        worst = max(worst, err)
-        require(err == 0, f"K4 {name}: kernel != plain (max |diff| {err})")
-        got = ec.points_to_host_list(ec._from_rows(out_k[:4], (4,)))
-        require(got == [hec.mul(v, base) for v in kk[:4]], f"K4 {name} != host oracle")
-        ms = _events_ms(lambda: pe.comb_call(dg, tab), 3)
-        pms = _events_ms(lambda: pe.comb_plain(dg, tab), 1)
-        # the table entries these digits touch, 64 B each (x, y)
-        touched = int(torch.unique(dg + 256 * torch.arange(32, device=dev)).numel())
-        bms, bby = _bound(dg.numel() + 2 * B * 48 + 64 * touched,
-                          B * (32 * RCB_ADD + JAC_IO))
-        log(f"K4 {name} lanes={B}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
-            f"bound {bms:.5f} ms")
-        if name == "G":
-            res["K4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                             shape=f"{B} lanes, base G")
+        tab, planes = pe._comb8_for(base, dev)
+        for n in sorted(set(EC_RAGGED + K4_TIMED)):
+            kk = [rnd.randrange(ec.Q_INT) for _ in range(n)]
+            kk[:2] = [0, 1][:n]
+            dg = pe._comb_digits(ec.sc_from_ints(np.asarray(kk, dtype=object), dev))
+            lane = torch.arange(min(2, n), n, device=dev)
+            dg[lane, lane % 32] = 0
+            dg[lane, (lane + 7) % 32] = 255
+            out_k = pe.comb_call(dg, tab, planes)
+            out_p = pe.comb_plain(dg, tab)
+            torch.cuda.synchronize()
+            err = _maxerr(out_k, out_p)
+            worst = max(worst, err)
+            require(err == 0 and out_k.shape == out_p.shape,
+                    f"K4 {name} lanes={n}: kernel != plain (max |diff| {err})")
+            if n not in K4_TIMED:
+                continue
+            got = ec.points_to_host_list(ec._from_rows(out_k[:4], (4,)))
+            want = [hec.mul(int.from_bytes(bytes(dg[i].to(torch.uint8).cpu().tolist()),
+                                           "little"), base) for i in range(4)]
+            require(got[0] is None and got == want, f"K4 {name} lanes={n} != host oracle")
+            ms = _events_ms(lambda: pe.comb_call(dg, tab, planes), 3)
+            pms = _events_ms(lambda: pe.comb_plain(dg, tab), 1)
+            # the table entries these digits touch, 64 B each (x, y)
+            touched = int(torch.unique(dg + 256 * torch.arange(32, device=dev)).numel())
+            bms, bby = _bound(dg.numel() + 2 * n * 48 + 64 * touched,
+                              n * (32 * RCB_ADD + JAC_IO))
+            log(f"K4 {name} lanes={n}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
+                f"bound {bms:.5f} ms")
+            if n != B:
+                continue
+            if name == "G":
+                res["K4"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                                 shape=f"{n} lanes, base G")
+            else:
+                res["K4"].update(ms_bp2=ms, plain_ms_bp2=pms, bound_ms_bp2=bms)
+        log(f"K4 {name} lanes {', '.join(map(str, EC_RAGGED))}: exact (k = 0, k = 1, "
+            f"digits 0 and 255 in every other lane)")
     res["K4"]["max_abs_err"] = worst
     # K5 with Z = 0 lanes
     P5 = pts[:B].clone()
@@ -583,7 +619,8 @@ CONFIGS = {"uniform": "0", "tables": "1"}     # the value of ENC_ENV per configu
 def run_slice(dev, repo, host_profile: bool = False):
     """Both configurations of the slice on the bench key at S = 128: load
     each key set (the tables one builds its h1/h2 and randomizer tables),
-    one warm-up pass each, then timed passes in the order uniform, tables,
+    one warm-up pass each (the first K3/K4 call at each shape held exactly
+    against its plain version), then timed passes in the order uniform, tables,
     tables, uniform.  Kernel counts are set to 0 just before each timed pass
     and read just after it; the tables passes must launch all five kernels,
     the uniform ones every kernel but K2."""
@@ -627,17 +664,48 @@ def run_slice(dev, repo, host_profile: bool = False):
         require(sig.sig_valid.all() and sig.ok.all(), f"slice[{cfg}]: a signature failed")
         return dt, t_off
 
+    def ec_shape(name, a):
+        """The K3/K4 launch shape of a wrapper call's inputs."""
+        if name == "K3":
+            return f"K3 ns={2 * a[0].shape[1]} lanes={a[0].shape[0]}"
+        return f"K4 lanes={a[0].shape[0]}"
+
+    # warm-up passes: the first K3/K4 call at each shape of the main path is
+    # held exactly against its plain version on that call's inputs
+    held = set()
+    plain = {"K3": pe.ladder_plain, "K4": lambda *a: pe.comb_plain(*a[:2])}
+
+    def checked(fn, name):
+        def run(*a):
+            out = fn(*a)
+            shape = ec_shape(name, a)
+            if shape not in held:
+                want = plain[name](*a)
+                err = _maxerr(out, want)
+                require(err == 0 and out.shape == want.shape,
+                        f"slice: {shape} on the main path: kernel != plain (max |diff| {err})")
+                held.add(shape)
+            return out
+        return run
+
     for cfg in CONFIGS:
-        dt, t_off = one_pass(cfg)
+        saved = [(pe, f, getattr(pe, f)) for f in ("ladder_call", "comb_call")]
+        pe.ladder_call, pe.comb_call = checked(pe.ladder_call, "K3"), checked(pe.comb_call, "K4")
+        try:
+            dt, t_off = one_pass(cfg)
+        finally:
+            for m, f, fn in saved:
+                setattr(m, f, fn)
         log(f"slice[{cfg}]: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), "
-            f"{S_SESSIONS} signatures verify")
+            f"{S_SESSIONS} signatures verify; K3/K4 exact against plain at the main "
+            f"path's shapes so far: {', '.join(sorted(held))}")
 
     # device time of each kernel wrapper over a timed pass: CUDA events on
     # the stream around every call (no extra synchronisation)
     patched = [(pr, "exp_call", "K1"), (pr, "fixed_call", "K2"), (pe, "ladder_call", "K3"),
                (pe, "comb_call", "K4"), (pe, "affine_call", "K5")]
 
-    def timed(fn, name, spans):
+    def timed(fn, name, spans, by_shape):
         def run(*a, **kw):
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
@@ -646,15 +714,19 @@ def run_slice(dev, repo, host_profile: bool = False):
             spans[name].append(ev)
             if name == "K1":                       # K1 by width (a[3] = nbits)
                 spans.setdefault(f"K1 {a[3]}b", []).append(ev)
+            elif name in ("K3", "K4"):             # K3 and K4 launches by shape
+                shape = ec_shape(name, a)
+                by_shape[shape] = by_shape.get(shape, 0) + 1
             return out
         return run
 
     runs = []
     for cfg in ("uniform", "tables", "tables", "uniform"):
         spans = {name: [] for _, _, name in patched}
+        by_shape = {}
         saved = [(m, f, getattr(m, f)) for m, f, _ in patched]
         for m, f, name in patched:
-            setattr(m, f, timed(getattr(m, f), name, spans))
+            setattr(m, f, timed(getattr(m, f), name, spans, by_shape))
         torch.cuda.synchronize()
         kernels.reset_launches()
         try:
@@ -672,11 +744,14 @@ def run_slice(dev, repo, host_profile: bool = False):
             f"verify; kernel device time (ms) "
             + json.dumps({k: round(v, 3) for k, v in busy.items()})
             + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); K1 by width "
-            + json.dumps(k1_by_width) + "; launches " + json.dumps(launches))
+            + json.dumps(k1_by_width) + "; launches " + json.dumps(launches)
+            + "; K3/K4 launches by shape " + json.dumps(dict(sorted(by_shape.items()))))
         want = [k for k in launches if cfg == "tables" or k != "K2"]
         missing = [k for k in want if launches[k] == 0]
         require(not missing, f"slice[{cfg}]: kernels not launched on the main path: {missing}")
         require(cfg == "tables" or launches["K2"] == 0, "slice[uniform]: K2 was launched")
+        require(set(by_shape) <= held, f"slice[{cfg}]: K3/K4 shapes never held against "
+                f"plain: {sorted(set(by_shape) - held)}")
     for cfg in CONFIGS:
         rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]
         log(f"slice[{cfg}]: sig/s over its two timed passes " + ", ".join(f"{r:.2f}" for r in rates))

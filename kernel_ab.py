@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time K1 and K2 of one or more checkouts of this repository on one card, in turns.
+"""Time K1-K5 of one or more checkouts of this repository on one card, in turns.
 
-    python3 kernel_ab.py TREE [TREE ...]        (e.g. old new new old)
+    python3 kernel_ab.py [--checks k1,k2,ec] TREE [TREE ...]   (e.g. old new new old)
 
 Each TREE is the root of a checkout (its chip_smoke.py and tpu_mpc_torch/).
 The trees run one after another, each in a process of its own, in the order
 given.  The process builds the tree's kernels (printing what ptxas reports)
-and runs the tree's own chip_smoke.check_k1 and check_k2: they hold K1 and K2
-exactly against the tree's plain versions at the slice's shapes and time
-them with CUDA events.  It prints one JSON line with the kernel ms of every
-shape those checks time.  Each check draws its inputs from a fresh
-random.Random(SEED), so trees whose checks draw alike see the same numbers.
+and runs the tree's own chip_smoke.check_k1, check_k2 and check_ec (all three
+unless --checks names fewer): they hold the kernels exactly against the
+tree's plain versions at the slice's shapes and time them with CUDA events.
+It prints one JSON line with the kernel ms of every shape those checks time.
+Each check draws its inputs from a fresh random.Random(SEED), so trees whose
+checks draw alike see the same numbers.
 Needs one CUDA card; imports nothing of jax or of tpu_mpc.
 """
 
@@ -26,10 +27,11 @@ import time
 
 SEED = 20261017
 # the checks' log lines of a timed shape: "<shape>: exact...; kernel <ms> ms"
-_TIMED = re.compile(r"(K[12] [^:]*): exact.*?; kernel ([0-9.]+) ms")
+_TIMED = re.compile(r"(K[1-5][^:]*): exact.*?; kernel ([0-9.]+) ms")
+CHECKS = ("k1", "k2", "ec")
 
 
-def worker(tree: str) -> int:
+def worker(tree: str, checks) -> int:
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -42,7 +44,7 @@ def worker(tree: str) -> int:
     built = kernels.build_all()
     res = {"tree": tree, "build_s": round(time.perf_counter() - t0, 1), "ptxas": [],
            "times": {}}
-    for name in ("rns", "rns_fixed"):
+    for name in ("rns", "rns_fixed", "ec"):
         for line in built.get(name, (0, ""))[1].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 res["ptxas"].append(f"{name}: {line.strip()}")
@@ -50,8 +52,8 @@ def worker(tree: str) -> int:
     chip_smoke.log = lines.append
     rc = 0
     try:
-        chip_smoke.check_k1(dev, random.Random(SEED))
-        chip_smoke.check_k2(dev, random.Random(SEED))
+        for c in checks:
+            getattr(chip_smoke, f"check_{c}")(dev, random.Random(SEED))
     except Exception as exc:   # a failed check: report it with what was timed
         res["error"] = f"{type(exc).__name__}: {exc}"
         rc = 1
@@ -65,9 +67,13 @@ def worker(tree: str) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
+    checks = CHECKS
+    if args[:1] == ["--checks"]:
+        checks = tuple(args[1].split(","))
+        args = args[2:]
     if args[:1] == ["--worker"]:
-        return worker(args[1])
-    if not args:
+        return worker(args[1], checks)
+    if not args or not set(checks) <= set(CHECKS):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -80,8 +86,8 @@ def main() -> int:
     print(f"card: {smi.stdout.strip()}", flush=True)
     rc = 0
     for tree in args:
-        rc = max(rc, subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                                     tree]).returncode)
+        rc = max(rc, subprocess.run([sys.executable, os.path.abspath(__file__), "--checks",
+                                     ",".join(checks), "--worker", tree]).returncode)
     return rc
 
 

@@ -154,3 +154,75 @@ def test_k2_mixed_groups_in_a_tile(dev, monkeypatch):
         perm = torch.as_tensor(np.argsort(np.argsort(gmap, kind="stable")), device=dev)
         args = (ew[perm], grow[perm], rows[perm], T, nwins, woffs, nb)
         assert torch.equal(real(*args), pr.fixed_plain(*args))
+
+
+RAGGED_EC = (1, 7, 9, 33, 257)
+MAIN_EC = (256, 512)            # the lane counts of K3/K4 on the main path
+
+
+def _comb_points(dev, rnd, n):
+    """n canonical Jacobian points with Z != 1 (the plain comb on the card)."""
+    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+
+    ks = np.asarray([rnd.randrange(1, hec.N) for _ in range(n)], dtype=object)
+    tab = pe._comb8_for(hec.G, dev)[0]
+    return pe.comb_plain(pe._comb_digits(ec.sc_from_ints(ks, dev)), tab)
+
+
+@pytest.mark.parametrize("ns", [2, 4])
+def test_k3_ragged_lanes_equal_plain(dev, ns):
+    """K3 at lane counts off its 8-lane block and at the main path's, lane 0
+    an infinity base and lane 1 (where present) k = 0: kernel == plain,
+    exactly."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.ec import secp256k1 as ec
+
+    rnd = random.Random(40 + ns)
+    for n in RAGGED_EC + MAIN_EC:
+        pts = _comb_points(dev, rnd, n * ns // 2)
+        pts[0] = 0
+        pts[0, 0, 0] = pts[0, 1, 0] = 1
+        ks = [rnd.randrange(ec.Q_INT) for _ in range(n * ns // 2)]
+        ks[min(1, n - 1)] = 0
+        DG, NEG = pe._glv_prep(ec.sc_from_ints(np.asarray(ks, dtype=object), dev))
+        if ns == 2:
+            P = pts[:, None]
+        else:
+            P = torch.stack([pts[:n], pts[n:]], 1)
+            DG, NEG = torch.cat([DG[:n], DG[n:]], 1), torch.cat([NEG[:n], NEG[n:]], 1)
+        n0 = kernels.LAUNCHES["K3"]
+        got = pe.ladder_call(P, DG, NEG)
+        assert kernels.LAUNCHES["K3"] == n0 + 1
+        assert torch.equal(got, pe.ladder_plain(P, DG, NEG)), n
+
+
+@pytest.mark.parametrize("base", ["G", "BASE_POINT2"])
+def test_k4_ragged_lanes_equal_plain(dev, base):
+    """K4 at lane counts off its 16-lane block and at the main path's, lane 0
+    k = 0 (all digits 0, the identity), lane 1 k = 1, and digits 0 and 255
+    in two windows of every other lane: kernel == plain, exactly; without
+    its planes the wrapper raises."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.host import ec as hec
+
+    bxy = hec.G if base == "G" else hec.BASE_POINT2
+    rnd = random.Random(50)
+    tab, planes = pe._comb8_for(bxy, dev)
+    for n in RAGGED_EC + MAIN_EC:
+        dg = torch.as_tensor([[rnd.randrange(256) for _ in range(32)] for _ in range(n)],
+                             device=dev)
+        dg[:2] = 0
+        dg[1:2, 0] = 1
+        lane = torch.arange(min(2, n), n, device=dev)
+        dg[lane, lane % 32] = 0
+        dg[lane, (lane + 11) % 32] = 255
+        n0 = kernels.LAUNCHES["K4"]
+        got = pe.comb_call(dg, tab, planes)
+        assert kernels.LAUNCHES["K4"] == n0 + 1
+        assert torch.equal(got, pe.comb_plain(dg, tab)), n
+    with pytest.raises(ValueError, match="K4: bad planes"):
+        pe.comb_call(dg, tab)

@@ -1,29 +1,47 @@
-// K3, K4, K5: batched secp256k1 kernels, one thread per lane.
+// K3, K4, K5: batched secp256k1 kernels.
 //
 //   K3 k3_glv_ladder  replaces tpu_mpc/ec/pallas_ec.py:_ladder_kernel
 //   K4 k4_comb        replaces tpu_mpc/ec/pallas_ec.py:_comb_kernel
 //   K5 k5_affine      replaces tpu_mpc/ec/pallas_ec.py:_affine_kernel
 //
-// What bounds them on the H100: integer operations.  Each field multiply is
-// 64 32x32->64-bit multiply-adds plus the fold; a GLV ladder (K3, ns = 2)
-// runs ~33 x (4 doublings + 2 additions) ~ 2,400 of them per lane, the comb
-// (K4) 32 additions ~ 450, the inversion (K5) ~ 330.  Inputs and outputs are
-// a few hundred bytes per lane, so memory traffic is negligible.  K4 also
-// pays for its constant-time select: 32 x 256 entries x 16 words of
-// AND/OR per lane, about 4x its field arithmetic.
+// What bounds them on the H100: integer multiply-adds, and the latency of
+// each lane's chain of them.  A GLV ladder (K3, ns = 2) is ~2,350 dependent
+// field products per lane, the comb (K4) ~450, the inversion (K5) ~330;
+// inputs and outputs are a few hundred bytes per lane.  At the main path's
+// 256 lanes, one thread per lane fills two SMs of 132 and waits on each
+// product's carry chain.
 //
-// Design: a lane is a thread and the field lives in registers (8 x 32-bit
-// limbs, fully reduced).  K3 and K5 need no block synchronisation and
-// ragged batches stop at B; in K4 the lanes past B help stage the table and
-// store nothing.  K3 keeps its per-lane 16-entry base tables in
-// local memory (L1-cached, 1.5 KB per base) and reads them with a masked
-// select over all 16 entries, constant time in the secret digit; the beta
-// endomorphism and the GLV sign apply to the selected entry.  K4's digits
-// are secret too (signing nonces): each block stages one window of the
-// 32 x 256 affine table in shared memory (16 KB) and every lane reads all
-// 256 entries with a masked select, so its memory accesses do not depend on
-// the digit.  K5's exponent p - 2 is a public constant, so its digits index
-// the table.
+// Design.  The field (ec_field.cuh) runs on the PTX carry flag: a product is
+// rows of two independent multiply-add chains, a square 36 products, a
+// multiply by 21 eight.  K3 and K4 spread each lane over a group of 4
+// threads of one warp: every round of independent products of an RCB
+// formula is split among the group and exchanged by shuffles (grp_add,
+// grp_dbl), in the same formula order as the plain versions, so the outputs
+// equal them bit for bit, Z included.
+//
+// K3 (8 lanes, one warp a block: 32 blocks at 256 lanes) builds each lane's
+// 16-entry base tables (one per base, two at ns = 4) in shared memory, then
+// runs 33 windows of 4 doublings and ns additions.  The digits are secret
+// (GLV halves of signing nonces and shares): every thread reads its 6 of the
+// 24 words of all 16 entries under a mask and the group gathers the
+// selected entry, so no address depends on a digit.  The beta endomorphism
+// and the GLV sign apply to the selected entry.
+//
+// K4 (16 lanes, two warps a block: 16 blocks at 256 lanes) selects a comb
+// entry as a one-hot product on the tensor cores, as the TPU kernel does on
+// its MXU: the A operand of mma.sync.m16n8k32 u8 is built in registers as
+// the rows (k == digit) of the block's 16 lanes, the B operand is the
+// window's table as u8 planes (256 entries x 64 bytes, x then y, in fragment
+// order: tpu_mpc_torch/ec/pallas_ec.py:comb_planes), and each s32 output is
+// exactly one byte of the selected entry (one nonzero term).  8 k-steps x 8
+// n-tiles = 64 mma a window, split between the two warps.  The planes of
+// window w + 1 are staged into shared memory by cp.async while window w
+// runs.  Digit 0 selects the entry (0, 1) with Z = 0, which the complete
+// formulas add as the identity.  Windows run 0..31 on one accumulator per
+// lane (a split over blocks would change the projective representative).
+//
+// K5 (one thread per lane) raises Z to p - 2, a public exponent, so its
+// digits index the table.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,7 +52,26 @@ using namespace ec;
 
 namespace {
 
-constexpr int kThreads = 128;
+// -- begin ptx: tensor-core and async-copy primitives -------------------------
+// d += a . b: a the 16 x 32 u8 A fragment, b the 32 x 8 u8 B fragment.
+__device__ __forceinline__ void mma_u8(int (&d)[4], const uint4& a, uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+               : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// -- end ptx ------------------------------------------------------------------
+
+constexpr int kThreads = 128;   // K5
 constexpr int kWindows = 33;
 
 __device__ __forceinline__ Fe beta_fe() {
@@ -45,103 +82,192 @@ __device__ __forceinline__ Fe beta_fe() {
   return b;
 }
 
-__global__ void k3_kernel(const int32_t* __restrict__ pts,  // [B, ns/2, 3, 16]
-                          const int32_t* __restrict__ dg,   // [B, ns, 33]
-                          const int32_t* __restrict__ neg,  // [B, ns]
-                          int B, int ns, int32_t* __restrict__ out) {  // [B, 3, 16]
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const int nb = ns / 2;
-  Pt tab[2][16];
-  for (int m = 0; m < nb; ++m) {
-    const Pt base = jac_in(pts + ((size_t)i * nb + m) * 48);
-    tab[m][0] = pt_identity();
-    tab[m][1] = base;
-    for (int d = 2; d < 16; ++d) tab[m][d] = rcb_add(tab[m][d - 1], base);
+__device__ __forceinline__ uint32_t pick_u32(int q, uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3) {
+  return q == 0 ? a0 : (q == 1 ? a1 : (q == 2 ? a2 : a3));
+}
+
+// word w (constant) of a point as 24 words X | Y | Z
+__device__ __forceinline__ uint32_t pt_word(const Pt& P, int w) {
+  return w < 8 ? P.X.v[w] : (w < 16 ? P.Y.v[w - 8] : P.Z.v[w - 16]);
+}
+
+// ---- K3 -----------------------------------------------------------------------
+
+constexpr int kLadderLanes = 8;                          // one warp a block
+constexpr int kLadderThreads = kLadderLanes * GROUP;
+constexpr int kEntPairs = 12;                            // 24 words as uint2
+
+// Table entries lie at tab[m][d][lane][12 uint2]; thread q of a group owns
+// words 6q .. 6q + 5 of each entry (it writes and reads those).
+__device__ __forceinline__ void put_entry(uint2* ent, const Pt& P, int q) {
+#pragma unroll
+  for (int u = 0; u < 3; ++u) {
+    uint2 v;
+    v.x = pick_u32(q, pt_word(P, 2 * u), pt_word(P, 6 + 2 * u), pt_word(P, 12 + 2 * u),
+                   pt_word(P, 18 + 2 * u));
+    v.y = pick_u32(q, pt_word(P, 2 * u + 1), pt_word(P, 7 + 2 * u), pt_word(P, 13 + 2 * u),
+                   pt_word(P, 19 + 2 * u));
+    ent[3 * q + u] = v;
   }
+}
+
+__global__ void __launch_bounds__(kLadderThreads)
+k3_kernel(const int32_t* __restrict__ pts,  // [B, ns/2, 3, 16]
+          const int32_t* __restrict__ dg,   // [B, ns, 33]
+          const int32_t* __restrict__ neg,  // [B, ns]
+          int B, int ns, int32_t* __restrict__ out) {  // [B, 3, 16]
+  __shared__ uint2 tab[2][16][kLadderLanes][kEntPairs];   // 24 KB
+  const Grp g = grp_this();
+  const int li = threadIdx.x / GROUP;
+  const int i = blockIdx.x * kLadderLanes + li;
+  const bool live = i < B;
+  const int il = live ? i : B - 1;     // lanes past B repeat the last one, store nothing
+  const int nb = ns / 2;
+  for (int m = 0; m < nb; ++m) {
+    const Pt base = jac_in(pts + ((size_t)il * nb + m) * 48);
+    put_entry(tab[m][0][li], pt_identity(), g.q);
+    put_entry(tab[m][1][li], base, g.q);
+    Pt cur = base;
+    for (int d = 2; d < 16; ++d) {
+      cur = grp_add(cur, base, g);
+      put_entry(tab[m][d][li], cur, g.q);
+    }
+  }
+  __syncwarp();
   const Fe beta = beta_fe();
   Pt acc = pt_identity();
   for (int j = 0; j < kWindows; ++j) {
     const int wj = kWindows - 1 - j;
-    for (int q = 0; q < 4; ++q) acc = rcb_dbl(acc);
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) acc = grp_dbl(acc, g);
+#pragma unroll 1
     for (int s = 0; s < ns; ++s) {
       const int m = s >> 1;
-      const uint32_t d = (uint32_t)dg[((size_t)i * ns + s) * kWindows + wj];
-      Pt e;
-      e.X = fe_zero();
-      e.Y = fe_zero();
-      e.Z = fe_zero();
+      const uint32_t d = (uint32_t)dg[((size_t)il * ns + s) * kWindows + wj];
+      // masked select over all 16 entries: this thread's 6 words of each
+      uint2 w[3];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) w[u] = make_uint2(0u, 0u);
+#pragma unroll
       for (int k = 0; k < 16; ++k) {
         const uint32_t msk = d == (uint32_t)k ? 0xFFFFFFFFu : 0u;
+        const uint2* e = tab[m][k][li] + 3 * g.q;
 #pragma unroll
-        for (int l = 0; l < 8; ++l) {
-          e.X.v[l] |= tab[m][k].X.v[l] & msk;
-          e.Y.v[l] |= tab[m][k].Y.v[l] & msk;
-          e.Z.v[l] |= tab[m][k].Z.v[l] & msk;
+        for (int u = 0; u < 3; ++u) {
+          const uint2 v = e[u];
+          w[u].x |= v.x & msk;
+          w[u].y |= v.y & msk;
         }
       }
+      // word W of the entry sits in slot W % 6 of thread W / 6
+      Pt e;
+#pragma unroll
+      for (int W = 0; W < 24; ++W) {
+        const int sl = W % 6;
+        const uint32_t mine = (sl & 1) ? w[sl >> 1].y : w[sl >> 1].x;
+        const uint32_t v = __shfl_sync(0xFFFFFFFFu, mine, g.base + W / 6);
+        if (W < 8) e.X.v[W] = v;
+        else if (W < 16) e.Y.v[W - 8] = v;
+        else e.Z.v[W - 16] = v;
+      }
       if (s & 1) e.X = fe_mul(e.X, beta);
-      const bool ng = neg[(size_t)i * ns + s] != 0;
+      const bool ng = neg[(size_t)il * ns + s] != 0;
       e.Y = fe_select(ng, fe_neg(e.Y), e.Y);
-      acc = rcb_add(acc, e);
+      acc = grp_add(acc, e, g);
     }
   }
-  jac_out(acc, out + (size_t)i * 48);
+  if (live && g.q == 0) jac_out(acc, out + (size_t)i * 48);
 }
 
-// One window of the comb table in shared memory: 256 entries of (x, y),
-// each as 8 packed 32-bit limbs, read as 4 x uint4 per entry.
-constexpr int kCombThreads = 64;
-constexpr int kCombEnt = 256;
+// ---- K4 -----------------------------------------------------------------------
+
+constexpr int kCombLanes = 16;                           // the M of one mma
+constexpr int kCombThreads = kCombLanes * GROUP;         // two warps
+constexpr int kCombWin = 32;
+constexpr int kPlaneBytes = 256 * 64;                    // one window's planes
+
+// byte b of the result is 1 where digit d == e0 + b (b = 0..3): four
+// one-hot A-fragment entries, from arithmetic on d only
+__device__ __forceinline__ uint32_t onehot4(uint32_t d, uint32_t e0) {
+  const uint32_t rel = d - e0;
+  return rel < 4u ? 1u << (8u * rel) : 0u;
+}
 
 __global__ void __launch_bounds__(kCombThreads)
-k4_kernel(const int32_t* __restrict__ dg,   // [B, 32]
-          const int32_t* __restrict__ tab,  // [32, 256, 2, 16]
-          int B, int32_t* __restrict__ out) {
-  __shared__ uint4 ent[kCombEnt * 4];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < B;
-  const int32_t* dl = dg + (size_t)(live ? i : 0) * 32;
-  uint32_t* flat = reinterpret_cast<uint32_t*>(ent);
+k4_kernel(const int32_t* __restrict__ dg,     // [B, 32]
+          const uint8_t* __restrict__ planes,  // [32, 16384] (pallas_ec.comb_planes)
+          int B, int32_t* __restrict__ out) {  // [B, 3, 16]
+  __shared__ __align__(16) uint8_t stage[2][kPlaneBytes];     // 32 KB
+  __shared__ __align__(16) uint32_t sel[kCombLanes][16];      // selected (x, y) per lane
+  __shared__ uint8_t sdg[kCombLanes][kCombWin];
+  const Grp g = grp_this();
+  const int li = threadIdx.x / GROUP;
+  const int i0 = blockIdx.x * kCombLanes;
+  const bool live = i0 + li < B;
+  for (int k = threadIdx.x; k < kCombLanes * kCombWin; k += kCombThreads) {
+    const int l = k / kCombWin, w = k % kCombWin;
+    sdg[l][w] = i0 + l < B ? (uint8_t)((uint32_t)dg[(size_t)(i0 + l) * kCombWin + w] & 0xFFu)
+                           : (uint8_t)0;
+  }
+  auto stage_window = [&](int w) {
+    const uint8_t* src = planes + (size_t)w * kPlaneBytes;
+    uint8_t* dst = stage[w & 1];
+    for (int k = threadIdx.x; k < kPlaneBytes / 16; k += kCombThreads)
+      cp_async16(dst + 16 * k, src + 16 * k);
+  };
+  stage_window(0);
+  // mma fragment coordinates: warp wp computes n-tiles 4 wp .. 4 wp + 3
+  const int wp = threadIdx.x >> 5, ln = threadIdx.x & 31, fg = ln >> 2, ft = ln & 3;
+  uint16_t* sel16 = reinterpret_cast<uint16_t*>(&sel[0][0]);
   Pt acc = pt_identity();
-  for (int w = 0; w < 32; ++w) {
-    // the block stages window w (16-bit limb pairs -> 32-bit limbs)
-    const int2* src = reinterpret_cast<const int2*>(tab + (size_t)w * kCombEnt * 32);
-    __syncthreads();
-    for (int k = threadIdx.x; k < kCombEnt * 16; k += blockDim.x) {
-      const int2 v = __ldg(src + k);
-      flat[k] = ((uint32_t)v.x & 0xFFFFu) | ((uint32_t)v.y << 16);
-    }
-    __syncthreads();
-    const uint32_t d = (uint32_t)dl[w] & 0xFFu;
-    uint4 sel[4];
+  for (int w = 0; w < kCombWin; ++w) {
+    cp_async_wait_all();
+    __syncthreads();                 // window w staged; window w - 1 fully read
+    if (w + 1 < kCombWin) stage_window(w + 1);
+    const uint32_t d0 = sdg[fg][w], d1 = sdg[fg + 8][w];   // rows fg and fg + 8
+    const uint8_t* st = stage[w & 1];
+    int dacc[4][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sel[c] = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 4
-    for (int k = 0; k < kCombEnt; ++k) {
-      const uint32_t msk = d == (uint32_t)k ? 0xFFFFFFFFu : 0u;
+    for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint4 v = ent[k * 4 + c];
-        sel[c].x |= v.x & msk;
-        sel[c].y |= v.y & msk;
-        sel[c].z |= v.z & msk;
-        sel[c].w |= v.w & msk;
+      for (int r = 0; r < 4; ++r) dacc[jj][r] = 0;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t e0 = 32u * kk + 4u * ft;
+      const uint4 a = make_uint4(onehot4(d0, e0), onehot4(d1, e0), onehot4(d0, e0 + 16u),
+                                 onehot4(d1, e0 + 16u));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const uint2 b = *reinterpret_cast<const uint2*>(
+            st + ((size_t)(kk * 8 + 4 * wp + jj) * 32 + ln) * 8);
+        mma_u8(dacc[jj], a, b.x, b.y);
       }
     }
-    Pt E;
+    // output bytes 8 j + 2 ft, 8 j + 2 ft + 1 of rows fg (regs 0, 1) and fg + 8 (2, 3)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      Fe& f = h ? E.Y : E.X;
-      f.v[0] = sel[2 * h].x; f.v[1] = sel[2 * h].y; f.v[2] = sel[2 * h].z; f.v[3] = sel[2 * h].w;
-      f.v[4] = sel[2 * h + 1].x; f.v[5] = sel[2 * h + 1].y;
-      f.v[6] = sel[2 * h + 1].z; f.v[7] = sel[2 * h + 1].w;
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * wp + jj;
+      sel16[fg * 32 + 4 * j + ft] = (uint16_t)(dacc[jj][0] | (dacc[jj][1] << 8));
+      sel16[(fg + 8) * 32 + 4 * j + ft] = (uint16_t)(dacc[jj][2] | (dacc[jj][3] << 8));
     }
-    E.Z = fe_small(d != 0u ? 1u : 0u);
-    acc = rcb_add(acc, E);
+    __syncthreads();
+    Pt E;
+    const uint4* sp = reinterpret_cast<const uint4*>(sel[li]);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint4 v = sp[h];
+      Fe& f = h < 2 ? E.X : E.Y;
+      const int o = 4 * (h & 1);
+      f.v[o] = v.x; f.v[o + 1] = v.y; f.v[o + 2] = v.z; f.v[o + 3] = v.w;
+    }
+    E.Z = fe_small(sdg[li][w] != 0 ? 1u : 0u);
+    acc = grp_add(acc, E, g);
   }
-  if (live) jac_out(acc, out + (size_t)i * 48);
+  if (live && g.q == 0) jac_out(acc, out + (size_t)(i0 + li) * 48);
 }
+
+// ---- K5 -----------------------------------------------------------------------
 
 // 4-bit digit i (least significant first) of p - 2 = 0xFF..FE FFFFFC2D
 __device__ __forceinline__ int pm2_digit(int i) {
@@ -172,24 +298,25 @@ __global__ void k5_kernel(const int32_t* __restrict__ pts,  // [B, 3, 16]
   fe_store16(fe_mul(Y, fe_mul(zi2, acc)), out + (size_t)i * 32 + 16);
 }
 
-int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
 extern "C" int k3_glv_ladder(const int32_t* pts, const int32_t* dg, const int32_t* neg,
                              int B, int ns, int32_t* out, cudaStream_t stream) {
-  if (ns != 2 && ns != 4) return (int)cudaErrorInvalidValue;
-  k3_kernel<<<blocks_for(B), kThreads, 0, stream>>>(pts, dg, neg, B, ns, out);
+  if ((ns != 2 && ns != 4) || B < 1) return (int)cudaErrorInvalidValue;
+  k3_kernel<<<cdiv(B, kLadderLanes), kLadderThreads, 0, stream>>>(pts, dg, neg, B, ns, out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int k4_comb(const int32_t* dg, const int32_t* tab, int B, int32_t* out,
+extern "C" int k4_comb(const int32_t* dg, const uint8_t* planes, int B, int32_t* out,
                        cudaStream_t stream) {
-  k4_kernel<<<(B + kCombThreads - 1) / kCombThreads, kCombThreads, 0, stream>>>(dg, tab, B, out);
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  k4_kernel<<<cdiv(B, kCombLanes), kCombThreads, 0, stream>>>(dg, planes, B, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int k5_affine(const int32_t* pts, int B, int32_t* out, cudaStream_t stream) {
-  k5_kernel<<<blocks_for(B), kThreads, 0, stream>>>(pts, B, out);
+  k5_kernel<<<cdiv(B, kThreads), kThreads, 0, stream>>>(pts, B, out);
   return (int)cudaGetLastError();
 }

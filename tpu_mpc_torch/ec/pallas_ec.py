@@ -5,6 +5,9 @@ relaxed-limb field they share (port of tpu_mpc/ec/pallas_ec.py).
   K4 comb_mul            replaces pallas_ec.py:_comb_kernel    (csrc/ec_kernels.cu)
   K5 affine              replaces pallas_ec.py:_affine_kernel  (csrc/ec_kernels.cu)
 
+K4 reads each base's comb table as u8 planes in tensor-core fragment order
+(comb_planes, cached per base and device); comb_plain reads the int32 table.
+
 Point algebra is the Renes-Costello-Batina complete projective formulas
 (a = 0, b3 = 21): no exception branches, identity (0:1:0).  Jacobian inputs
 enter as homogeneous (XZ, Y, Z^3) and leave as canonical Jacobian
@@ -320,8 +323,23 @@ def comb_plain(dg, tab):
     return jac_out(acc)
 
 
-def comb_call(dg, tab):
-    """K4 on CUDA tensors; the plain version on CPU tensors."""
+def comb_planes(tab):
+    """[32, 256, 2, 16] int32 comb table -> [32, 16384] uint8, K4's B operand.
+
+    Each window's 256 entries as 64 bytes (x then y, 16-bit limbs
+    little-endian), laid out as mma.sync.m16n8k32 u8 reads its B fragments
+    with the entries as K and the bytes as N: [k-step kk 8][n-tile j 8]
+    [thread 4 g + t][register r 2][byte i 4] holds byte 8 j + g of entry
+    32 kk + 16 r + 4 t + i."""
+    t = tab.to(torch.int64)
+    b = torch.stack([t & 0xFF, (t >> 8) & 0xFF], -1).reshape(COMB_NW, COMB_NENT, 64)
+    b = b.reshape(COMB_NW, 8, 2, 4, 4, 8, 8).permute(0, 1, 5, 6, 3, 2, 4)
+    return b.reshape(COMB_NW, COMB_NENT * 64).to(torch.uint8).contiguous()
+
+
+def comb_call(dg, tab, planes=None):
+    """K4 on CUDA tensors, which need `planes` = comb_planes(tab) (cached
+    with the table by _comb8_for); the plain version on CPU tensors."""
     if dg.device.type == "cpu":
         return comb_plain(dg, tab)
     B = dg.shape[0]
@@ -329,11 +347,15 @@ def comb_call(dg, tab):
             or tab.shape != (COMB_NW, COMB_NENT, 2, L) or tab.dtype != torch.int32 \
             or not tab.is_contiguous():
         raise ValueError("K4: bad inputs")
+    if planes is None or planes.device != dg.device \
+            or planes.shape != (COMB_NW, COMB_NENT * 64) \
+            or planes.dtype != torch.uint8 or not planes.is_contiguous():
+        raise ValueError("K4: bad planes")
     out = torch.empty((B, 3, L), dtype=torch.int32, device=dg.device)
     d32 = _pt_i32(dg)
     if B:
         rc = kernels.lib("ec").k4_comb(
-            d32.data_ptr(), tab.data_ptr(), B, out.data_ptr(),
+            d32.data_ptr(), planes.data_ptr(), B, out.data_ptr(),
             kernels.stream_handle(dg.device))
         kernels.check(rc, "K4 k4_comb")
         kernels.count("K4")
@@ -449,9 +471,12 @@ def _comb8_host(base_xy) -> np.ndarray:
 
 
 def _comb8_for(base_xy, device):
+    """(table, planes) of a base on a device, built once: the int32 table
+    for comb_plain and its u8 planes for K4."""
     key = (base_xy, str(device))
     if key not in _COMB8_CACHE:
-        _COMB8_CACHE[key] = torch.as_tensor(_comb8_host(base_xy), device=device)
+        tab = torch.as_tensor(_comb8_host(base_xy))
+        _COMB8_CACHE[key] = (tab.to(device), comb_planes(tab).to(device))
     return _COMB8_CACHE[key]
 
 
@@ -465,7 +490,8 @@ def comb_mul(k, base_xy):
     """k * Base for a public fixed base via the 8-bit comb (K4)."""
     from .secp256k1 import Point
 
-    out = comb_call(_comb_digits(k), _comb8_for(base_xy, k.device))
+    tab, planes = _comb8_for(base_xy, k.device)
+    out = comb_call(_comb_digits(k), tab, planes)
     return Point(out[:, 0], out[:, 1], out[:, 2])
 
 

@@ -122,7 +122,7 @@ _SIGNATURES = {
     "ec": {
         # pts, digits, neg, B, ns, out, stream
         "k3_glv_ladder": [_VP, _VP, _VP, _I, _I, _VP, _VP],
-        # digits, table, B, out, stream
+        # digits, planes (pallas_ec.comb_planes), B, out, stream
         "k4_comb": [_VP, _VP, _I, _VP, _VP],
         # pts, B, out, stream
         "k5_affine": [_VP, _I, _VP, _VP],
