@@ -18,19 +18,23 @@ Phases (any failure exits non-zero and prints no result line):
              from L2.  K3 (ns = 2 and 4, an infinity base and k = 0) and
              K4 (bases G and BASE_POINT2, digits 0 and 255 in every lane)
              at lane counts 1, 7, 9, 33, 257; K3 timed at 128, 256 and 512
-             lanes, K4 at 256 for both bases;
+             lanes, K4 at 256 and 512 for both bases; K5 (lanes with Z = 0
+             and with edge Z values, those also against python pow) at 1,
+             7, 9, 33, 257, and timed at 256 and 512;
   3. slice   GG20 2-of-3 signing at 2048-bit Paillier: the bench key
              (benches/bench_key_2048.json) tiled to S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
              randomizer tables, the default on the card) and "uniform" (no
              tables); one warm-up pass each, then timed passes of
              offline_stage + sign_online in the order uniform, tables,
-             tables, uniform.  Every signature must verify under the
+             tables, uniform.  The first K3/K4/K5 launch at each shape of
+             the warm-up passes is held against its plain version on its
+             inputs.  Every signature must verify under the
              pure-python ECDSA verifier; every kernel must have been
              launched in each tables pass, every kernel but K2 in each
              uniform pass.  Each timed pass prints K1's device time split by
-             operand width (2048-bit N, 4096-bit N^2) and the K3 and K4
-             launches by lane count (and ns).
+             operand width (2048-bit N, 4096-bit N^2) and the K3, K4 and
+             K5 launches by lane count (and ns).
 Then it prints one JSON line {"kernels": [...]}, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  It imports nothing of jax or
 of the reference package tpu_mpc.
@@ -49,9 +53,10 @@ import time
 S_SESSIONS = 128
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
-EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4 lane counts off their 8- and 16-lane blocks
+EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4/K5 lane counts off their 8-, 16-, 32-lane blocks
 K3_TIMED = (128, 256, 512)
 K4_TIMED = (256, 512)                # the lane counts of K4 on the main path
+K5_TIMED = (256, 512)                # K5 timed here (the main path runs 128 to 1792)
 K2_LANES = 256                       # S*tp*(tp-1)
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
@@ -70,6 +75,16 @@ FE_MUL, FE_SQ, FE_MULI = 64, 36, 8
 RCB_ADD = 12 * FE_MUL + 2 * FE_MULI
 RCB_DBL = 6 * FE_MUL + 2 * FE_SQ + FE_MULI
 JAC_IO = 2 * FE_MUL + FE_SQ                 # jac_in and jac_out alike
+# INT32 operations of one K5 lane as csrc/ec_kernels.cu writes them: 20
+# batches of 30 divsteps of 27 operations (masks, adds, shifts) and of the
+# two matrix updates (80 multiply-adds: 4 a limb each for t [d, e] and
+# t [f, g], 2 for md, me and 6 for p [md, me] on p's nonzero limbs 0, 1, 8);
+# then Z^-2 (a square) and the three products of the projection
+K5_DIVSTEP_OPS = 20 * (30 * 27 + 80) + FE_SQ + 3 * FE_MUL
+# multiply-adds of one K5 lane in the fewest of the designs measured, the
+# fixed addition chain for Z^(p-2) (255 squarings and 15 products), then
+# Z^-2 and the projection: K5's bound
+K5_CHAIN_OPS = 256 * FE_SQ + 18 * FE_MUL
 
 
 def log(msg: str) -> None:
@@ -584,27 +599,55 @@ def check_ec(dev, rnd):
         log(f"K4 {name} lanes {', '.join(map(str, EC_RAGGED))}: exact (k = 0, k = 1, "
             f"digits 0 and 255 in every other lane)")
     res["K4"]["max_abs_err"] = worst
-    # K5 with Z = 0 lanes
-    P5 = pts[:B].clone()
-    P5[3, 2] = 0
-    out_k = pe.affine_call(P5)
-    out_p = pe.affine_plain(P5)
-    torch.cuda.synchronize()
-    err = _maxerr(out_k, out_p)
-    require(err == 0, f"K5: kernel != plain (max |diff| {err})")
-    x, y, inf = pe.affine(ec.Point(P5[:, 0], P5[:, 1], P5[:, 2]))
-    require(bool(inf[0]) and bool(inf[3]) and not bool(inf[2]),
-            "K5 infinity flags wrong")
+    # K5: lane 0 the infinity base (Z = 0), lane 3 Z = 0 with X, Y of a point,
+    # lane 2 a real point (host oracle), lanes 4.. the edge Z values
+    # (pe.Z_EDGE, with the X, Y of real points); exact at lane counts off the
+    # 32-lane block and at K5_TIMED, where it is timed.  Every K5 shape of the
+    # main path (128 to 1792 lanes) is held in run_slice's first warm-up pass.
+    worst = 0
+    P = hec.P
+    zedge = pe.Z_EDGE
+    limbs = lambda v: torch.as_tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                      dtype=torch.int64, device=dev)
     as_int = lambda t: int.from_bytes(t.cpu().numpy().astype("<u2").tobytes(), "little")
-    require((as_int(x[2]), as_int(y[2])) == hec.mul(int(pk[2])), "K5 != host oracle")
-    ms = _events_ms(lambda: pe.affine_call(P5), 3)
-    pms = _events_ms(lambda: pe.affine_plain(P5), 1)
-    # 14 table products, 64 windows of 4 squarings + 1 product, Z^-2 (a
-    # square) and the three products of the projection
-    bms, bby = _bound(2 * B * (48 + 32), B * ((14 + 64 + 3) * FE_MUL + (256 + 1) * FE_SQ))
-    log(f"K5 lanes={B}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms")
-    res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, max_abs_err=err,
-                     shape=f"{B} lanes")
+    for n in sorted(set(EC_RAGGED + K5_TIMED)):
+        P5 = pts[:n].clone()
+        if n > 3:
+            P5[3, 2] = 0
+        for j, z in enumerate(zedge[:max(0, n - 4)]):
+            P5[4 + j, 2] = limbs(z)
+        out_k = pe.affine_call(P5)
+        out_p = pe.affine_plain(P5)
+        torch.cuda.synchronize()
+        err = _maxerr(out_k, out_p)
+        worst = max(worst, err)
+        require(err == 0 and out_k.shape == out_p.shape,
+                f"K5 lanes={n}: kernel != plain (max |diff| {err})")
+        for j in (j for j in (0, 3, *range(4, 4 + len(zedge))) if j < n):
+            zi = pow(as_int(P5[j, 2]) or 1, -1, P)
+            want = (as_int(P5[j, 0]) * zi * zi % P, as_int(P5[j, 1]) * zi ** 3 % P)
+            require((as_int(out_k[j, 0]), as_int(out_k[j, 1])) == want,
+                    f"K5 lanes={n} lane {j} != python pow")
+        if n not in K5_TIMED:
+            continue
+        x, y, inf = pe.affine(ec.Point(P5[:, 0], P5[:, 1], P5[:, 2]))
+        require(bool(inf[0]) and bool(inf[3]) and not bool(inf[2]), "K5 infinity flags wrong")
+        require((as_int(x[2]), as_int(y[2])) == hec.mul(int(pk[2])), "K5 != host oracle")
+        ms = _events_ms(lambda: pe.affine_call(P5), 3)
+        pms = _events_ms(lambda: pe.affine_plain(P5), 1)
+        nbytes = 2 * n * (48 + 32)
+        bms, bby = _bound(nbytes, n * K5_CHAIN_OPS)
+        # the divstep kernel's own INT32 operations (K5_DIVSTEP_OPS)
+        dms = _bound(nbytes, n * K5_DIVSTEP_OPS)[0]
+        log(f"K5 lanes={n}: exact (Z = 0 and edge Z lanes); kernel {ms:.4f} ms, plain "
+            f"{pms:.1f} ms, bound {bms:.5f} ms, divstep bound {dms:.5f} ms")
+        if n == B:
+            res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                             bound_ms_divstep=dms, shape=f"{n} lanes")
+        else:
+            res["K5"].update({f"ms_{n}": ms, f"plain_ms_{n}": pms, f"bound_ms_{n}": bms})
+    log(f"K5 lanes {', '.join(map(str, EC_RAGGED))}: exact (Z = 0, edge Z)")
+    res["K5"]["max_abs_err"] = worst
     return res
 
 
@@ -619,7 +662,7 @@ CONFIGS = {"uniform": "0", "tables": "1"}     # the value of ENC_ENV per configu
 def run_slice(dev, repo, host_profile: bool = False):
     """Both configurations of the slice on the bench key at S = 128: load
     each key set (the tables one builds its h1/h2 and randomizer tables),
-    one warm-up pass each (the first K3/K4 call at each shape held exactly
+    one warm-up pass each (the first K3/K4/K5 call at each shape held exactly
     against its plain version), then timed passes in the order uniform, tables,
     tables, uniform.  Kernel counts are set to 0 just before each timed pass
     and read just after it; the tables passes must launch all five kernels,
@@ -665,15 +708,16 @@ def run_slice(dev, repo, host_profile: bool = False):
         return dt, t_off
 
     def ec_shape(name, a):
-        """The K3/K4 launch shape of a wrapper call's inputs."""
+        """The K3/K4/K5 launch shape of a wrapper call's inputs."""
         if name == "K3":
             return f"K3 ns={2 * a[0].shape[1]} lanes={a[0].shape[0]}"
-        return f"K4 lanes={a[0].shape[0]}"
+        return f"{name} lanes={a[0].shape[0]}"
 
-    # warm-up passes: the first K3/K4 call at each shape of the main path is
-    # held exactly against its plain version on that call's inputs
+    # warm-up passes: the first K3/K4/K5 call at each shape of the main path
+    # is held exactly against its plain version on that call's inputs
     held = set()
-    plain = {"K3": pe.ladder_plain, "K4": lambda *a: pe.comb_plain(*a[:2])}
+    plain = {"K3": pe.ladder_plain, "K4": lambda *a: pe.comb_plain(*a[:2]),
+             "K5": pe.affine_plain}
 
     def checked(fn, name):
         def run(*a):
@@ -689,15 +733,16 @@ def run_slice(dev, repo, host_profile: bool = False):
         return run
 
     for cfg in CONFIGS:
-        saved = [(pe, f, getattr(pe, f)) for f in ("ladder_call", "comb_call")]
+        saved = [(pe, f, getattr(pe, f)) for f in ("ladder_call", "comb_call", "affine_call")]
         pe.ladder_call, pe.comb_call = checked(pe.ladder_call, "K3"), checked(pe.comb_call, "K4")
+        pe.affine_call = checked(pe.affine_call, "K5")
         try:
             dt, t_off = one_pass(cfg)
         finally:
             for m, f, fn in saved:
                 setattr(m, f, fn)
         log(f"slice[{cfg}]: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), "
-            f"{S_SESSIONS} signatures verify; K3/K4 exact against plain at the main "
+            f"{S_SESSIONS} signatures verify; K3/K4/K5 exact against plain at the main "
             f"path's shapes so far: {', '.join(sorted(held))}")
 
     # device time of each kernel wrapper over a timed pass: CUDA events on
@@ -714,7 +759,7 @@ def run_slice(dev, repo, host_profile: bool = False):
             spans[name].append(ev)
             if name == "K1":                       # K1 by width (a[3] = nbits)
                 spans.setdefault(f"K1 {a[3]}b", []).append(ev)
-            elif name in ("K3", "K4"):             # K3 and K4 launches by shape
+            elif name in ("K3", "K4", "K5"):       # K3-K5 launches by shape
                 shape = ec_shape(name, a)
                 by_shape[shape] = by_shape.get(shape, 0) + 1
             return out
@@ -745,12 +790,12 @@ def run_slice(dev, repo, host_profile: bool = False):
             + json.dumps({k: round(v, 3) for k, v in busy.items()})
             + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); K1 by width "
             + json.dumps(k1_by_width) + "; launches " + json.dumps(launches)
-            + "; K3/K4 launches by shape " + json.dumps(dict(sorted(by_shape.items()))))
+            + "; K3/K4/K5 launches by shape " + json.dumps(dict(sorted(by_shape.items()))))
         want = [k for k in launches if cfg == "tables" or k != "K2"]
         missing = [k for k in want if launches[k] == 0]
         require(not missing, f"slice[{cfg}]: kernels not launched on the main path: {missing}")
         require(cfg == "tables" or launches["K2"] == 0, "slice[uniform]: K2 was launched")
-        require(set(by_shape) <= held, f"slice[{cfg}]: K3/K4 shapes never held against "
+        require(set(by_shape) <= held, f"slice[{cfg}]: K3/K4/K5 shapes never held against "
                 f"plain: {sorted(set(by_shape) - held)}")
     for cfg in CONFIGS:
         rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]

@@ -157,7 +157,7 @@ def test_k2_mixed_groups_in_a_tile(dev, monkeypatch):
 
 
 RAGGED_EC = (1, 7, 9, 33, 257)
-MAIN_EC = (256, 512)            # the lane counts of K3/K4 on the main path
+MAIN_EC = (256, 512)            # lane counts of the main path that the card tests run
 
 
 def _comb_points(dev, rnd, n):
@@ -173,7 +173,7 @@ def _comb_points(dev, rnd, n):
 
 @pytest.mark.parametrize("ns", [2, 4])
 def test_k3_ragged_lanes_equal_plain(dev, ns):
-    """K3 at lane counts off its 8-lane block and at the main path's, lane 0
+    """K3 at lane counts off its 8-lane block and at 256 and 512, lane 0
     an infinity base and lane 1 (where present) k = 0: kernel == plain,
     exactly."""
     from tpu_mpc_torch import kernels
@@ -226,3 +226,31 @@ def test_k4_ragged_lanes_equal_plain(dev, base):
         assert torch.equal(got, pe.comb_plain(dg, tab)), n
     with pytest.raises(ValueError, match="K4: bad planes"):
         pe.comb_call(dg, tab)
+
+
+def test_k5_ragged_lanes_equal_plain(dev):
+    """K5 at lane counts off its 32-lane block and at 256 and 512 lanes, lane 0
+    Z = 0, lanes 1.. the edge Z values (pallas_ec.Z_EDGE, with X, Y of real
+    points): kernel == plain, exactly, and the edge lanes against python pow.
+    The main path's other K5 shapes (128 to 1792 lanes) are held against the
+    plain version in chip_smoke.py's first warm-up pass."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import pallas_ec as pe
+
+    rnd = random.Random(60)
+    limbs = lambda v: torch.as_tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                      device=dev)
+    val = lambda t: sum(int(v) << (16 * i) for i, v in enumerate(t.tolist()))
+    for n in RAGGED_EC + MAIN_EC:
+        pts = _comb_points(dev, rnd, n)
+        pts[0, 2] = 0
+        for j, z in enumerate(pe.Z_EDGE[:n - 1]):
+            pts[1 + j, 2] = limbs(z)
+        n0 = kernels.LAUNCHES["K5"]
+        got = pe.affine_call(pts)
+        assert kernels.LAUNCHES["K5"] == n0 + 1
+        assert torch.equal(got, pe.affine_plain(pts)), n
+        for j in range(min(n, 1 + len(pe.Z_EDGE))):
+            zi = pow(val(pts[j, 2]) or 1, -1, pe.P_INT)
+            assert val(got[j, 0]) == val(pts[j, 0]) * zi * zi % pe.P_INT
+            assert val(got[j, 1]) == val(pts[j, 1]) * zi ** 3 % pe.P_INT

@@ -4,12 +4,13 @@
 //   K4 k4_comb        replaces tpu_mpc/ec/pallas_ec.py:_comb_kernel
 //   K5 k5_affine      replaces tpu_mpc/ec/pallas_ec.py:_affine_kernel
 //
-// What bounds them on the H100: integer multiply-adds, and the latency of
-// each lane's chain of them.  A GLV ladder (K3, ns = 2) is ~2,350 dependent
-// field products per lane, the comb (K4) ~450, the inversion (K5) ~330;
-// inputs and outputs are a few hundred bytes per lane.  At the main path's
-// 256 lanes, one thread per lane fills two SMs of 132 and waits on each
-// product's carry chain.
+// What bounds them on the H100: integer operations, and the latency of each
+// lane's chain of them.  A GLV ladder (K3, ns = 2) is ~2,350 dependent field
+// products per lane, the comb (K4) ~450; the inversion (K5) is 600 divsteps
+// of a few dependent 32-bit operations each, 40 matrix updates and 4 field
+// products.  Inputs and outputs are a few hundred bytes per lane.  The main
+// path's 256 or 512 lanes are few for 132 SMs: each lane's chain, not the
+// card's throughput, sets the time.
 //
 // Design.  The field (ec_field.cuh) runs on the PTX carry flag: a product is
 // rows of two independent multiply-add chains, a square 36 products, a
@@ -40,8 +41,18 @@
 // formulas add as the identity.  Windows run 0..31 on one accumulator per
 // lane (a split over blocks would change the projective representative).
 //
-// K5 (one thread per lane) raises Z to p - 2, a public exponent, so its
-// digits index the table.
+// K5 (one thread per lane, 32-lane blocks: 8 SMs at 256 lanes; 128-lane
+// blocks measured slower) inverts Z by Bernstein and Yang's constant-time
+// divsteps in libsecp256k1's 30-bit form, in place of the Fermat chain
+// Z^(p - 2) of the TPU kernel and of the plain version (~340 dependent field
+// products on one thread and a 16-entry table in local memory; libsecp256k1's
+// fixed addition chain, 255 squarings and 15 products, measured 2.7x slower
+// than the divsteps).  The divsteps run on the low words of two 9-limb signed
+// 30-bit numbers, 30 at a time; after each 30 a 2x2 matrix updates the limbs
+// by 64-bit multiply-adds.  The iteration count is fixed and every step is a
+// mask, so no branch or address depends on Z; everything stays in registers.
+// The inverse is unique, so the output equals the plain version's bit for
+// bit; the projection (X Z^-2, Y Z^-3) runs on fe_mul / fe_sq.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,7 +82,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 // -- end ptx ------------------------------------------------------------------
 
-constexpr int kThreads = 128;   // K5
 constexpr int kWindows = 33;
 
 __device__ __forceinline__ Fe beta_fe() {
@@ -268,34 +278,198 @@ k4_kernel(const int32_t* __restrict__ dg,     // [B, 32]
 }
 
 // ---- K5 -----------------------------------------------------------------------
+//
+// Z^-1 mod p by Bernstein and Yang's constant-time divsteps ("safegcd"), in
+// the 30-bit form of libsecp256k1's modinv32 (src/modinv32_impl.h, and its
+// doc/safegcd_implementation.md): f = p, g = Z, d = 0, e = 1 as 9 signed
+// limbs of 30 bits (value = sum v_i 2^(30 i)); 20 batches of 30 divsteps
+// (600 >= the 590 that 256-bit inputs need), each batch on the low words of
+// f and g alone, giving a 2x2 matrix t with t [f, g] = 2^30 [f', g'];
+// then (d, e) <- (t [d, e] + p [md, me]) / 2^30 and (f, g) <- t [f, g] / 2^30.
+// At the end g = 0, f = +-1 and d = +-Z^-1 in (-2p, p): normalise_30 adds p
+// and negates by the sign of f, both under masks.  Every step is a mask, a
+// shift or a multiply-add: no branch or address depends on Z.
 
-// 4-bit digit i (least significant first) of p - 2 = 0xFF..FE FFFFFC2D
-__device__ __forceinline__ int pm2_digit(int i) {
-  const int limb = i >> 3;
-  const uint32_t v = limb == 0 ? 0xFFFFFC2Du : (limb == 1 ? 0xFFFFFFFEu : 0xFFFFFFFFu);
-  return (int)((v >> (4 * (i & 7))) & 0xFu);
+constexpr uint32_t kM30 = 0x3FFFFFFFu;
+// p = 2^256 - 2^32 - 977 in signed 30-bit limbs: -977 - 4 * 2^30 + 2^16 * 2^240
+// (limbs 2..7 are 0)
+constexpr int32_t kP30_0 = -0x3D1, kP30_1 = -4, kP30_8 = 0x10000;
+// p^-1 mod 2^30, with p = 0x3FFFFC2F (mod 2^30): Newton's step x <- x (2 - p x)
+// from x = p (p^2 = 1 mod 8) doubles the correct low bits, 3 -> 6 -> 12 -> 24
+// -> 48, so four steps mod 2^30 give 0x2DDACACF
+constexpr uint32_t kPinv30 = 0x2DDACACFu;
+
+struct S30 {
+  int32_t v[9];
+};
+
+struct Trans {
+  int32_t u, v, q, r;
+};
+
+__device__ __forceinline__ int32_t p30(int i) {
+  return i == 0 ? kP30_0 : (i == 1 ? kP30_1 : (i == 8 ? kP30_8 : 0));
 }
 
-__global__ void k5_kernel(const int32_t* __restrict__ pts,  // [B, 3, 16]
-                          int B, int32_t* __restrict__ out) {  // [B, 2, 16]
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// 8 x 32-bit limbs -> signed 30-bit limbs (bits 30 i .. 30 i + 29; limb 8 16 bits)
+__device__ __forceinline__ S30 fe_to_s30(const Fe& a) {
+  S30 r;
+  r.v[0] = (int32_t)(a.v[0] & kM30);
+#pragma unroll
+  for (int i = 1; i < 8; ++i)
+    r.v[i] = (int32_t)(__funnelshift_r(a.v[i - 1], a.v[i], 32 - 2 * i) & kM30);
+  r.v[8] = (int32_t)(a.v[7] >> 16);
+  return r;
+}
+
+// signed 30-bit limbs in [0, 2^30) of a value < 2^256 -> 8 x 32-bit limbs
+__device__ __forceinline__ Fe s30_to_fe(const S30& s) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r.v[k] = ((uint32_t)s.v[k] >> (2 * k)) | ((uint32_t)s.v[k + 1] << (30 - 2 * k));
+  return r;
+}
+
+// 30 divsteps on the low words of f (odd) and g; zeta = -(delta + 1/2).
+// u, v, q, r are signed integers in [-2^30, 2^30] kept mod 2^32.
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f, uint32_t g, Trans& t) {
+  uint32_t u = 1u, v = 0u, q = 0u, r = 1u;
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    const uint32_t c1 = (uint32_t)(zeta >> 31);        // zeta < 0
+    const uint32_t c2 = 0u - (g & 1u);                 // g odd
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    const uint32_t c3 = c1 & c2;                       // both: swap
+    zeta = (zeta ^ (int32_t)c3) - 1;
+    f += g & c3;
+    u += q & c3;
+    v += r & c3;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t.u = (int32_t)u;
+  t.v = (int32_t)v;
+  t.q = (int32_t)q;
+  t.r = (int32_t)r;
+  return zeta;
+}
+
+// (d, e) <- (t [d, e] + p [md, me]) / 2^30, md and me chosen so that the low
+// 30 bits vanish (p^-1 mod 2^30) after adding t's columns where d or e < 0
+__device__ __forceinline__ void update_de_30(S30& d, S30& e, const Trans& t) {
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+  int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+  md -= (int32_t)((kPinv30 * (uint32_t)cd + (uint32_t)md) & kM30);
+  me -= (int32_t)((kPinv30 * (uint32_t)ce + (uint32_t)me) & kM30);
+  cd += (int64_t)kP30_0 * md;
+  ce += (int64_t)kP30_0 * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cd += (int64_t)t.u * d.v[i] + (int64_t)t.v * e.v[i];
+    ce += (int64_t)t.q * d.v[i] + (int64_t)t.r * e.v[i];
+    if (p30(i) != 0) {                                  // limbs 1 and 8 (compile time)
+      cd += (int64_t)p30(i) * md;
+      ce += (int64_t)p30(i) * me;
+    }
+    d.v[i - 1] = (int32_t)((uint32_t)cd & kM30);
+    e.v[i - 1] = (int32_t)((uint32_t)ce & kM30);
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// (f, g) <- t [f, g] / 2^30 (the low 30 bits are 0 by construction of t)
+__device__ __forceinline__ void update_fg_30(S30& f, S30& g, const Trans& t) {
+  int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+  int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cf += (int64_t)t.u * f.v[i] + (int64_t)t.v * g.v[i];
+    cg += (int64_t)t.q * f.v[i] + (int64_t)t.r * g.v[i];
+    f.v[i - 1] = (int32_t)((uint32_t)cf & kM30);
+    g.v[i - 1] = (int32_t)((uint32_t)cg & kM30);
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+// d in (-2p, p), limbs 0..7 in [0, 2^30): + p if d < 0, negate if sign < 0,
+// carry, + p if still < 0, carry: the canonical value in [0, p)
+__device__ __forceinline__ void normalize_30(S30& d, int32_t sign) {
+  const int32_t add1 = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] += p30(i) & add1;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] = (d.v[i] ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= (int32_t)kM30;
+  }
+  const int32_t add2 = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d.v[i] += p30(i) & add2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= (int32_t)kM30;
+  }
+}
+
+// z^-1 mod p for a canonical z != 0
+__device__ __forceinline__ Fe fe_inv(const Fe& z) {
+  S30 f, g = fe_to_s30(z), d, e;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    f.v[i] = p30(i);
+    d.v[i] = 0;
+    e.v[i] = 0;
+  }
+  e.v[0] = 1;
+  int32_t zeta = -1;                                    // delta = 1/2
+#pragma unroll 1
+  for (int b = 0; b < 20; ++b) {
+    Trans t;
+    zeta = divsteps_30(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    update_de_30(d, e, t);
+    update_fg_30(f, g, t);
+  }
+  normalize_30(d, f.v[8]);
+  return s30_to_fe(d);
+}
+
+constexpr int kAffineThreads = 32;    // one lane a thread: 256 lanes on 8 SMs
+
+__global__ void __launch_bounds__(kAffineThreads)
+k5_kernel(const int32_t* __restrict__ pts,  // [B, 3, 16]
+          int B, int32_t* __restrict__ out) {  // [B, 2, 16]
+  const int i = blockIdx.x * kAffineThreads + threadIdx.x;
   if (i >= B) return;
   const int32_t* l = pts + (size_t)i * 48;
   const Fe X = fe_load16(l), Y = fe_load16(l + 16);
   Fe z = fe_load16(l + 32);
-  if (fe_is_zero(z)) z = fe_small(1u);  // Z = 0 lanes invert a dummy 1
-  Fe tab[16];
-  tab[0] = fe_small(1u);
-  tab[1] = z;
-  for (int d = 2; d < 16; ++d) tab[d] = fe_mul(tab[d - 1], z);
-  Fe acc = fe_small(1u);
-  for (int j = 0; j < 64; ++j) {
-    for (int q = 0; q < 4; ++q) acc = fe_sq(acc);
-    acc = fe_mul(acc, tab[pm2_digit(63 - j)]);
-  }
-  const Fe zi2 = fe_sq(acc);
+  z.v[0] |= fe_is_zero(z) ? 1u : 0u;    // Z = 0 lanes invert a dummy 1
+  const Fe zi = fe_inv(z);
+  const Fe zi2 = fe_sq(zi);
   fe_store16(fe_mul(X, zi2), out + (size_t)i * 32);
-  fe_store16(fe_mul(Y, fe_mul(zi2, acc)), out + (size_t)i * 32 + 16);
+  fe_store16(fe_mul(Y, fe_mul(zi2, zi)), out + (size_t)i * 32 + 16);
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -317,6 +491,6 @@ extern "C" int k4_comb(const int32_t* dg, const uint8_t* planes, int B, int32_t*
 }
 
 extern "C" int k5_affine(const int32_t* pts, int B, int32_t* out, cudaStream_t stream) {
-  k5_kernel<<<cdiv(B, kThreads), kThreads, 0, stream>>>(pts, B, out);
+  k5_kernel<<<cdiv(B, kAffineThreads), kAffineThreads, 0, stream>>>(pts, B, out);
   return (int)cudaGetLastError();
 }

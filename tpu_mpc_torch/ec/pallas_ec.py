@@ -366,6 +366,17 @@ def comb_call(dg, tab, planes=None):
 # K5: to_affine (Fermat inversion + projection)
 # --------------------------------------------------------------------------
 
+# Z values at the edges of K5's inversion: next to 0 and to p, powers of two
+# at and around the 16-, 30- and 32-bit limb boundaries, long runs of 0 or 1
+# bits.  K5's checks and tests put these in lanes of their inputs.
+Z_EDGE = (1, 2, 3, P_INT - 1, P_INT - 2, 2**32 - 1, 2**32, 2**32 + 977, 2**255,
+          2**256 % P_INT, 2**255 - 1, 2**128 - 1, 2**128, 2**30, 2**30 - 1, 2**240,
+          2**240 - 1, (2**256 - 1) % P_INT, P_INT - 2**32, P_INT - 2**128,
+          int("F0" * 32, 16) % P_INT, int("0F" * 32, 16),
+          sum(1 << i for i in range(0, 256, 30)),
+          sum(0x3FFFFFFF << (60 * i) for i in range(5)) % P_INT)
+
+
 def affine_plain(pts):
     """pts [B, 3, 16] canonical Jacobian -> [B, 2, 16] canonical affine
     (x, y) = (X/Z^2, Y/Z^3).  Z = 0 lanes invert a dummy 1 (the caller masks
