@@ -21,8 +21,18 @@ Phases (any failure exits non-zero and prints no result line):
              lanes, K4 at 256 and 512 for both bases; K5 (lanes with Z = 0
              and with edge Z values, those also against python pow) at 1,
              7, 9, 33, 257, and timed at 256 and 512;
-  3. slice   GG20 2-of-3 signing at 2048-bit Paillier: the bench key
-             (benches/bench_key_2048.json) tiled to S = 128 sessions, in both
+  3. keygen  GG20 keygen (t = 1, n = 3, 2048-bit Paillier) on the card in
+             the tables configuration: keygen(16, ...) under SessionRng(0xFACE)
+             and keygen(1, ...) under SessionRng(0xBE7C), each held equal,
+             field for field, to the JAX package's key file of that seed
+             (benches/bench_keys_S16_2048.json, benches/bench_key_2048.json),
+             every launch shape of K1-K5 held against its plain version on
+             its first call; prints the host prime-search seconds, kernel
+             device time, table-build seconds and bytes, launches and ms per
+             kernel, and the prime search over worker processes against one;
+  4. slice   GG20 2-of-3 signing at 2048-bit Paillier: the S = 1 key of the
+             keygen phase (equal to benches/bench_key_2048.json) tiled to
+             S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
              randomizer tables, the default on the card) and "uniform" (no
              tables); one warm-up pass each, then timed passes of
@@ -35,9 +45,20 @@ Phases (any failure exits non-zero and prints no result line):
              uniform pass.  Each timed pass prints K1's device time split by
              operand width (2048-bit N, 4096-bit N^2) and the K3, K4 and
              K5 launches by lane count (and ns).
-Then it prints one JSON line {"kernels": [...]}, the card's name and power
-limit, and last {"ok": true, "device": {...}}.  It imports nothing of jax or
-of the reference package tpu_mpc.
+  5. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
+             sessions interleaved (session s on key group s % 8), tables
+             configuration with the tables compressed at 8 key sets behind a
+             gmap: K2 over the key's 24 flattened table groups, then one
+             warm-up pass, both with every K1-K5 launch shape held against
+             its plain version; two timed passes, which must launch all five
+             kernels and take the G = 8 batch verification with no
+             per-session fallback; every signature verifies under its own
+             group's y.
+Then it prints one JSON line {"kernels": [...]} (launches: the first timed
+tables pass of the slice; launches_keygen: the S = 16 keygen;
+launches_multitenant: the first timed multi-tenant pass), the card's name
+and power limit, and last {"ok": true, "device": {...}}.  It imports nothing
+of jax or of the reference package tpu_mpc.
 """
 
 from __future__ import annotations
@@ -652,37 +673,254 @@ def check_ec(dev, rnd):
 
 
 # --------------------------------------------------------------------------
-# phase 3: the slice
+# instrumentation of the main paths: holds against the plain versions, and
+# CUDA events around every kernel call
 # --------------------------------------------------------------------------
 
 ENC_ENV = "TPU_MPC_TORCH_ENC_TABLES"
 CONFIGS = {"uniform": "0", "tables": "1"}     # the value of ENC_ENV per configuration
 
 
-def run_slice(dev, repo, host_profile: bool = False):
-    """Both configurations of the slice on the bench key at S = 128: load
-    each key set (the tables one builds its h1/h2 and randomizer tables),
-    one warm-up pass each (the first K3/K4/K5 call at each shape held exactly
-    against its plain version), then timed passes in the order uniform, tables,
-    tables, uniform.  Kernel counts are set to 0 just before each timed pass
-    and read just after it; the tables passes must launch all five kernels,
-    the uniform ones every kernel but K2."""
+def _wrappers():
+    """kernel -> (module, wrapper name, plain version taking the same args)."""
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.ec import pallas_ec as pe
+
+    return {"K1": (pr, "exp_call", pr.exp_plain), "K2": (pr, "fixed_call", pr.fixed_plain),
+            "K3": (pe, "ladder_call", pe.ladder_plain),
+            "K4": (pe, "comb_call", lambda *a: pe.comb_plain(*a[:2])),
+            "K5": (pe, "affine_call", pe.affine_plain)}
+
+
+def launch_shape(name, a, kw) -> str:
+    """The launch shape of a wrapper call's inputs."""
+    if name == "K1":
+        emit = kw.get("emit_planes", a[4] if len(a) > 4 else True)
+        return (f"K1 {a[3]}b lanes={a[0].shape[0]} exp_bits={32 * a[1].shape[1]} "
+                f"moduli={a[2].shape[0]} {'cols' if emit else 'residues'}")
+    if name == "K2":
+        return (f"K2 {a[6]}b lanes={a[0].shape[0]} groups={a[3][0].shape[2]} "
+                f"windows={'+'.join(map(str, a[4]))}")
+    if name == "K3":
+        return f"K3 ns={2 * a[0].shape[1]} lanes={a[0].shape[0]}"
+    return f"{name} lanes={a[0].shape[0]}"
+
+
+class Instrument:
+    """Patches the kernel wrappers for the life of a `with` block.
+
+    hold: the kernels whose first call at each launch shape not yet in
+    `held` is held exactly against the plain version on the same inputs
+    (the hold runs outside the events).  Every call of every kernel is
+    counted by shape in `by_shape` and timed by CUDA events on the stream
+    around the kernel call (no extra synchronisation): `spans[K]`, and K1
+    also by width under "K1 <bits>b"."""
+
+    def __init__(self, held: set, hold=()):
+        self.held, self.hold = held, set(hold)
+        self.spans, self.by_shape, self.new_holds = {}, {}, []
+
+    def _wrap(self, name, fn, plain):
+        import torch
+
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.spans.setdefault(name, []).append(ev)
+            shape = launch_shape(name, a, kw)
+            if name == "K1":
+                self.spans.setdefault(f"K1 {a[3]}b", []).append(ev)
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+            if name in self.hold and shape not in self.held:
+                want = plain(*a, **kw)
+                err = _maxerr(out, want)
+                require(err == 0 and out.shape == want.shape,
+                        f"{shape} on a main path: kernel != plain (max |diff| {err})")
+                self.held.add(shape)
+                self.new_holds.append(shape)
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = []
+        for name, (mod, attr, plain) in _wrappers().items():
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        return False
+
+    def busy(self) -> dict:
+        """Device ms per kernel (and K1 per width); call after a sync."""
+        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
+
+
+def _kernel_summary(inst, launches) -> str:
+    busy = inst.busy()
+    per = {k: round(busy.get(k, 0.0), 3) for k in launches}
+    k1w = {k: round(v, 3) for k, v in sorted(busy.items()) if k.startswith("K1 ")}
+    return (f"kernel device time (ms) {json.dumps(per)}, sum {sum(per.values()):.1f} ms; "
+            f"K1 by width {json.dumps(k1w)}; launches {json.dumps(launches)}")
+
+
+# --------------------------------------------------------------------------
+# phase 3: keygen
+# --------------------------------------------------------------------------
+
+PAILLIER_BITS = 2048
+KEYGEN_RUNS = ((16, 0xFACE, "bench_keys_S16_2048.json"), (1, 0xBE7C, "bench_key_2048.json"))
+PRIME_POOL_COUNT = 16        # 1024-bit primes timed serially and over the worker processes
+
+
+def _material(key) -> dict:
+    """A port key's plain-int material, in the form of benches/bench_key_2048.json."""
+    from tpu_mpc_torch.ec import secp256k1 as ec
+
+    ints = lambda a: [[int(v) for v in row] for row in a]
+    return {"S": key.S, "t": key.t, "n": key.n, "bits": key.paillier_bits,
+            "p": ints(key.p), "q": ints(key.q), "nt": ints(key.dlog_stmt.ctx.n_ints),
+            "h1": ints(key.dlog_stmt.h1), "h2": ints(key.dlog_stmt.h2),
+            "u": ints(key.u), "x": ints(key.x),
+            "y_i": ec.points_to_host_list(key.y_i),
+            "vss": ec.points_to_host_list(key.vss.commitments)}
+
+
+def _key_diff(key, d) -> list:
+    """The fields of `key` that differ from the committed key file `d`."""
+    import numpy as np
+
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+
+    m = _material(key)
+    bad = [f for f in ("p", "q", "nt", "h1", "h2", "u", "x")
+           if not np.array_equal(gg20._ints(m[f]), gg20._ints(d[f]))]
+    bad += [f for f in ("y_i", "vss") if m[f] != gg20._tuplify(d[f])]
+    if int(d.get("S", 1)) != key.S or int(d["t"]) != key.t or int(d["n"]) != key.n:
+        bad.append("S/t/n")
+    return bad
+
+
+def run_keygen(dev, repo):
+    """GG20 keygen on the card in the tables configuration, every K1-K5
+    launch shape held against its plain version on its first call: keygen(16,
+    1, 3) under SessionRng(0xFACE), then keygen(1, 1, 3) under
+    SessionRng(0xBE7C), each held equal, field for field, to the JAX
+    package's committed key file of that seed.  Kernel counts are set to 0
+    just before each keygen and read just after.  Returns (S = 16 result,
+    S = 1 key's material, the S = 16 keygen's launches)."""
     import torch
 
     from tpu_mpc_torch import kernels
-    from tpu_mpc_torch.core import pallas_rns as pr
-    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.host import primes
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.zk.range_proofs import DlogStatementBatch, PaillierCtxBatch
+
+    os.environ[ENC_ENV] = "1"
+    held, out = set(), []
+    for S, seed, fname in KEYGEN_RUNS:
+        with open(os.path.join(repo, "benches", fname)) as f:
+            d = json.load(f)
+        require(int(d["seed"]) == seed, f"keygen: {fname} is not the key of seed {seed:#x}")
+        secs = {"primes": 0.0, "tables": 0.0}
+        saved = [(gg20, "gen_paillier_batch"), (DlogStatementBatch, "ensure_tables"),
+                 (PaillierCtxBatch, "ensure_enc_tables")]
+        orig = {a: getattr(m, a) for m, a in saved}
+
+        def timing(fn, what, sync):
+            def run(*a, **kw):
+                if sync:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                secs[what] += time.perf_counter() - t
+                return r
+            return run
+
+        gg20.gen_paillier_batch = timing(orig["gen_paillier_batch"], "primes", False)
+        DlogStatementBatch.ensure_tables = timing(orig["ensure_tables"], "tables", True)
+        PaillierCtxBatch.ensure_enc_tables = timing(orig["ensure_enc_tables"], "tables", True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        try:
+            with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+                t0 = time.perf_counter()
+                res = gg20.keygen(S, 1, 3, SessionRng(seed), PAILLIER_BITS, device=dev)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            for m, a in saved:
+                setattr(m, a, orig[a])
+        launches = dict(kernels.LAUNCHES)
+        key = res.key
+        require(res.ok.all() and not res.bad_actors.any(),
+                f"keygen S={S}: a check failed: bad actors {res.bad_actors.tolist()}")
+        diff = _key_diff(key, d)
+        require(not diff, f"keygen S={S}: fields differ from benches/{fname}: {diff}")
+        missing = [k for k in ("K1", "K3", "K4", "K5") if launches[k] == 0]
+        require(not missing, f"keygen S={S}: kernels not launched: {missing}")
+        tabs = list(key.dlog_stmt.tables_rns) + [key.ek.enc_tab_g, key.ek.enc_tab_h]
+        nbytes = sum(t.numel() * t.element_size() for t in tabs)
+        busy = inst.busy()
+        dev_s = sum(v for k, v in busy.items() if not k.startswith("K1 ")) / 1e3
+        log(f"keygen S={S} (seed {seed:#x}, t=1, n=3, {PAILLIER_BITS}-bit Paillier): res.ok all true "
+            f"({S} of {S}); p, q, nt, h1, h2, u, x, y_i, vss equal benches/{fname}; "
+            f"wall {dt:.2f} s (the plain holds included), host prime search {secs['primes']:.2f} s "
+            f"({4 * S * 3} primes of {PAILLIER_BITS // 2} bits), kernel device time {dev_s:.3f} s, table "
+            f"builds {secs['tables']:.2f} s for {nbytes / 1e9:.3f} GB "
+            f"({len(tabs)} tables over {3 * S} (key set, party) slots)")
+        log(f"keygen S={S}: " + _kernel_summary(inst, launches))
+        log(f"keygen S={S}: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; "
+            f"held against plain in this keygen: {', '.join(inst.new_holds)}")
+        out.append((res, launches))
+    # the prime search over worker processes against one process, same seeds
+    for workers in (1, None):
+        t = time.perf_counter()
+        got = primes.gen_primes_parallel(1024, PRIME_POOL_COUNT, random.Random(0x9E1),
+                                         workers=workers)
+        dtp = time.perf_counter() - t
+        if workers == 1:
+            serial = got
+        require(got == serial, "prime search: worker processes changed the primes")
+        log(f"prime search: {PRIME_POOL_COUNT} primes of 1024 bits in {dtp:.2f} s with "
+            f"{'1 process' if workers == 1 else f'{os.cpu_count()} worker processes'}")
+    return out[0][0], _material(out[1][0].key), out[0][1]
+
+
+# --------------------------------------------------------------------------
+# phase 4: the slice
+# --------------------------------------------------------------------------
+
+def run_slice(dev, material, host_profile: bool = False):
+    """Both configurations of the slice at S = 128 on the key of the keygen
+    phase (keygen(1, 1, 3) under SessionRng(0xBE7C), equal to
+    benches/bench_key_2048.json): load each key set (the tables one builds
+    its h1/h2 and randomizer tables), one warm-up pass each (the first
+    K3/K4/K5 call at each shape held exactly against its plain version),
+    then timed passes in the order uniform, tables, tables, uniform.  Kernel
+    counts are set to 0 just before each timed pass and read just after it;
+    the tables passes must launch all five kernels, the uniform ones every
+    kernel but K2."""
+    import torch
+
+    from tpu_mpc_torch import kernels
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
     from tpu_mpc_torch.utils.rng import SessionRng
 
-    with open(os.path.join(repo, "benches", "bench_key_2048.json")) as f:
-        d = json.load(f)
     keys, rngs = {}, {}
     for cfg, flag in CONFIGS.items():
         os.environ[ENC_ENV] = flag
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        key1 = gg20.key_from_material(d, device=dev)
+        key1 = gg20.key_from_material(material, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         require((key1.dlog_stmt.tables_rns is not None) == (flag == "1")
@@ -690,7 +928,7 @@ def run_slice(dev, repo, host_profile: bool = False):
                 f"slice[{cfg}]: the key's tables do not match the configuration")
         keys[cfg] = gg20.tile_key(key1, S_SESSIONS)
         rngs[cfg] = SessionRng(0xC41B)
-        log(f"slice[{cfg}]: bench key loaded in {dt:.2f} s"
+        log(f"slice[{cfg}]: the keygen's bench key loaded in {dt:.2f} s"
             + (" (h1/h2 and randomizer tables built)" if flag == "1" else "")
             + f", tiled to S={S_SESSIONS}")
 
@@ -707,96 +945,38 @@ def run_slice(dev, repo, host_profile: bool = False):
         require(sig.sig_valid.all() and sig.ok.all(), f"slice[{cfg}]: a signature failed")
         return dt, t_off
 
-    def ec_shape(name, a):
-        """The K3/K4/K5 launch shape of a wrapper call's inputs."""
-        if name == "K3":
-            return f"K3 ns={2 * a[0].shape[1]} lanes={a[0].shape[0]}"
-        return f"{name} lanes={a[0].shape[0]}"
-
     # warm-up passes: the first K3/K4/K5 call at each shape of the main path
     # is held exactly against its plain version on that call's inputs
     held = set()
-    plain = {"K3": pe.ladder_plain, "K4": lambda *a: pe.comb_plain(*a[:2]),
-             "K5": pe.affine_plain}
-
-    def checked(fn, name):
-        def run(*a):
-            out = fn(*a)
-            shape = ec_shape(name, a)
-            if shape not in held:
-                want = plain[name](*a)
-                err = _maxerr(out, want)
-                require(err == 0 and out.shape == want.shape,
-                        f"slice: {shape} on the main path: kernel != plain (max |diff| {err})")
-                held.add(shape)
-            return out
-        return run
-
     for cfg in CONFIGS:
-        saved = [(pe, f, getattr(pe, f)) for f in ("ladder_call", "comb_call", "affine_call")]
-        pe.ladder_call, pe.comb_call = checked(pe.ladder_call, "K3"), checked(pe.comb_call, "K4")
-        pe.affine_call = checked(pe.affine_call, "K5")
-        try:
+        with Instrument(held, hold=("K3", "K4", "K5")):
             dt, t_off = one_pass(cfg)
-        finally:
-            for m, f, fn in saved:
-                setattr(m, f, fn)
         log(f"slice[{cfg}]: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), "
             f"{S_SESSIONS} signatures verify; K3/K4/K5 exact against plain at the main "
             f"path's shapes so far: {', '.join(sorted(held))}")
 
-    # device time of each kernel wrapper over a timed pass: CUDA events on
-    # the stream around every call (no extra synchronisation)
-    patched = [(pr, "exp_call", "K1"), (pr, "fixed_call", "K2"), (pe, "ladder_call", "K3"),
-               (pe, "comb_call", "K4"), (pe, "affine_call", "K5")]
-
-    def timed(fn, name, spans, by_shape):
-        def run(*a, **kw):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*a, **kw)
-            ev[1].record()
-            spans[name].append(ev)
-            if name == "K1":                       # K1 by width (a[3] = nbits)
-                spans.setdefault(f"K1 {a[3]}b", []).append(ev)
-            elif name in ("K3", "K4", "K5"):       # K3-K5 launches by shape
-                shape = ec_shape(name, a)
-                by_shape[shape] = by_shape.get(shape, 0) + 1
-            return out
-        return run
-
     runs = []
     for cfg in ("uniform", "tables", "tables", "uniform"):
-        spans = {name: [] for _, _, name in patched}
-        by_shape = {}
-        saved = [(m, f, getattr(m, f)) for m, f, _ in patched]
-        for m, f, name in patched:
-            setattr(m, f, timed(getattr(m, f), name, spans, by_shape))
         torch.cuda.synchronize()
         kernels.reset_launches()
-        try:
+        with Instrument(held) as inst:
             dt, t_off = one_pass(cfg)
-        finally:
-            for m, f, fn in saved:
-                setattr(m, f, fn)
         launches = dict(kernels.LAUNCHES)
-        busy = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-        k1_by_width = {k: round(busy.pop(k), 3) for k in sorted(busy) if k.startswith("K1 ")}
+        busy = inst.busy()
+        tot = sum(busy.get(k, 0.0) for k in launches)
+        ec_shapes = {k: v for k, v in inst.by_shape.items() if k[:2] in ("K3", "K4", "K5")}
         runs.append((cfg, launches, busy, dt))
-        tot = sum(busy.values())
         log(f"slice[{cfg}]: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
             f"{dt - t_off:.2f} s), {S_SESSIONS / dt:.2f} sig/s, all {S_SESSIONS} signatures "
-            f"verify; kernel device time (ms) "
-            + json.dumps({k: round(v, 3) for k, v in busy.items()})
-            + f", sum {tot:.1f} ms ({100 * tot / (dt * 1e3):.1f}% of the pass); K1 by width "
-            + json.dumps(k1_by_width) + "; launches " + json.dumps(launches)
-            + "; K3/K4/K5 launches by shape " + json.dumps(dict(sorted(by_shape.items()))))
+            f"verify; " + _kernel_summary(inst, launches)
+            + f" ({100 * tot / (dt * 1e3):.1f}% of the pass); K3/K4/K5 launches by shape "
+            + json.dumps(dict(sorted(ec_shapes.items()))))
         want = [k for k in launches if cfg == "tables" or k != "K2"]
         missing = [k for k in want if launches[k] == 0]
         require(not missing, f"slice[{cfg}]: kernels not launched on the main path: {missing}")
         require(cfg == "tables" or launches["K2"] == 0, "slice[uniform]: K2 was launched")
-        require(set(by_shape) <= held, f"slice[{cfg}]: K3/K4/K5 shapes never held against "
-                f"plain: {sorted(set(by_shape) - held)}")
+        require(set(ec_shapes) <= held, f"slice[{cfg}]: K3/K4/K5 shapes never held against "
+                f"plain: {sorted(set(ec_shapes) - held)}")
     for cfg in CONFIGS:
         rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]
         log(f"slice[{cfg}]: sig/s over its two timed passes " + ", ".join(f"{r:.2f}" for r in rates))
@@ -815,6 +995,113 @@ def run_slice(dev, repo, host_profile: bool = False):
             + buf.getvalue())
     # the main path is the tables configuration: its first timed pass
     return next(r[1] for r in runs if r[0] == "tables")
+
+
+# --------------------------------------------------------------------------
+# phase 5: multi-tenant signing
+# --------------------------------------------------------------------------
+
+MT_GROUPS = 8
+
+
+def run_multitenant(dev, res16):
+    """G = 8 key groups of the S = 16 keygen serving S = 128 sessions
+    interleaved (session s on group s % 8, R = 16), tables configuration:
+    the tables stay compressed at the 8 key sets behind a gmap.  First K2
+    over the key's 24 flattened table groups (8 key sets x 3 parties), then
+    one warm-up pass, both with every K1-K5 launch shape held against its
+    plain version on its first call; then two timed passes, kernel counts
+    set to 0 just before each and read just after.  Each pass must launch
+    all five kernels and take the G = 8 batch verification with no
+    per-session fallback; every signature must verify under its own group's
+    y."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.zk import batch_verify as bv
+
+    os.environ[ENC_ENV] = "1"
+    G, S = MT_GROUPS, S_SESSIONS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keyG = gg20.take_key_sets(res16.key, G)
+    key = gg20.repeat_key(keyG, S)
+    torch.cuda.synchronize()
+    log(f"multitenant: first {G} key sets of the S=16 keygen, repeated to S={S} "
+        f"(R={S // G}) in {time.perf_counter() - t0:.2f} s; h1/h2 tables "
+        f"{tuple(key.dlog_stmt.tables_rns[0].shape)}, gmap period {key.dlog_stmt.n_groups}")
+    held = set()
+    # K2 over the key's own tables: 24 flattened groups, every party of every session
+    rnd = random.Random(0x24)
+    stmt = key.dlog_stmt
+    # the exponent widths of alice_prove's w commitment (classes 776 and 3104)
+    n, eb2 = key.n, 768 + key.paillier_bits + 16 + 160
+    e1 = np.asarray([[rnd.getrandbits(776) for _ in range(n)] for _ in range(S)], dtype=object)
+    e2 = np.asarray([[rnd.getrandbits(eb2) for _ in range(n)] for _ in range(S)], dtype=object)
+    with Instrument(held, hold=("K2",)) as inst:
+        got = stmt.pow_h1h2(e1, e2, (776, eb2))
+    require(any(f"groups={G * n} " in k for k in inst.by_shape),
+            f"multitenant: K2 did not run over {G * n} groups: {list(inst.by_shape)}")
+    for s, i in ((0, 0), (1, n - 1), (G + 1, 1), (S - 1, n - 1)):
+        g, nt = s % G, int(keyG.dlog_stmt.ctx.n_ints[s % G, i])
+        want = pow(int(keyG.dlog_stmt.h1[g, i]), int(e1[s, i]), nt) * \
+            pow(int(keyG.dlog_stmt.h2[g, i]), int(e2[s, i]), nt) % nt
+        require(int(got[s, i]) == want, f"multitenant: K2 over 24 groups != python pow at {s, i}")
+    log(f"multitenant: K2 over the key's {G * n} flattened groups exact against plain and "
+        f"python pow: {', '.join(inst.new_holds)}")
+
+    rng = SessionRng(0x6B05)
+    y_host = ec.points_to_host_list(keyG.y)
+
+    def one_pass(check_y):
+        bv.reset_stats()
+        t = time.perf_counter()
+        off = gg20.offline_stage(key, [0, 1], rng)
+        torch.cuda.synchronize()
+        t_off = time.perf_counter() - t
+        sig = gg20.sign_online(off, MSG)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        require(off.ok.all(), f"multitenant: offline stage failed: {off.debug_masks}")
+        require(sig.sig_valid.all() and sig.ok.all(), "multitenant: a signature failed")
+        stats = {"grouped": dict(bv.STATS["grouped"]), "per_session": bv.STATS["per_session"]}
+        require(stats == {"grouped": {G: 2}, "per_session": 0},
+                f"multitenant: batch verification did not take the G={G} reduction: {stats}")
+        if check_y:
+            for s in range(S):
+                require(hec.ecdsa_verify(y_host[s % G], MSG % hec.N, int(sig.r[s]),
+                                         int(sig.s[s])),
+                        f"multitenant: session {s} does not verify under group {s % G}'s y")
+        return dt, t_off, stats
+
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+        dt, t_off, stats = one_pass(True)
+    log(f"multitenant: warm-up pass {dt:.2f} s (offline {t_off:.2f} s); all {S} signatures "
+        f"verify under their own group's y; batch verification {json.dumps(stats)}; "
+        f"held against plain: {', '.join(inst.new_holds)}")
+    first = None
+    for i in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Instrument(held) as inst:
+            dt, t_off, stats = one_pass(i == 1)
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in launches if launches[k] == 0]
+        require(not missing, f"multitenant: kernels not launched: {missing}")
+        require(set(inst.by_shape) <= held, f"multitenant: launch shapes never held against "
+                f"plain: {sorted(set(inst.by_shape) - held)}")
+        k2 = {k: v for k, v in inst.by_shape.items() if k.startswith("K2")}
+        log(f"multitenant: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
+            f"{dt - t_off:.2f} s), {S / dt:.2f} sig/s, G={G}, all {S} signatures verify; "
+            f"batch verification {json.dumps(stats)}; " + _kernel_summary(inst, launches)
+            + f"; K2 launches by shape {json.dumps(dict(sorted(k2.items())))}")
+        first = first or launches
+    return first
 
 
 def card_line() -> str:
@@ -863,7 +1150,9 @@ def main() -> int:
     ec_res = check_ec(dev, rnd)
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
-    launches = run_slice(dev, repo, host_profile="--host-profile" in sys.argv[1:])
+    res16, material, kg_launches = run_keygen(dev, repo)
+    launches = run_slice(dev, material, host_profile="--host-profile" in sys.argv[1:])
+    mt_launches = run_multitenant(dev, res16)
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -881,6 +1170,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
+            "launches_keygen": kg_launches[name], "launches_multitenant": mt_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,

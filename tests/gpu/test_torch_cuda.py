@@ -156,6 +156,37 @@ def test_k2_mixed_groups_in_a_tile(dev, monkeypatch):
         assert torch.equal(real(*args), pr.fixed_plain(*args))
 
 
+def test_k2_multitenant_24_groups(dev, monkeypatch):
+    """K2 over 24 flattened key groups (8 key sets x 3 parties, the
+    multi-tenant phase of chip_smoke.py) at 2048 bits, sessions interleaved
+    over the groups: kernel == fixed_plain on the same inputs, and python
+    pow for every lane."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.modctx import ModCtx
+
+    rnd = random.Random(24)
+    bits, G, lanes = 2048, 24, 24 * 11
+    ns = np.asarray([rnd.getrandbits(bits) | 1 | (1 << (bits - 1)) for _ in range(G)],
+                    dtype=object)
+    g = np.asarray([[rnd.getrandbits(bits) % int(n) for n in ns]], dtype=object)
+    tabs = ModCtx.from_ints(ns.reshape(8, 3), bits, dev).make_tables_rns(g.reshape(1, 8, 3), 256)
+    gmap = np.arange(lanes) % G
+    e = np.asarray([rnd.getrandbits(256) for _ in range(lanes)], dtype=object)
+    cap = {}
+    real = pr.fixed_call
+    monkeypatch.setattr(pr, "fixed_call", lambda *a: cap.setdefault("a", a) and real(*a))
+    n0 = kernels.LAUNCHES["K2"]
+    got = ModCtx.from_ints(ns[gmap], bits, dev).pow_fixed_prod_rns(tabs, [e], (256,), gmap=gmap)
+    assert kernels.LAUNCHES["K2"] == n0 + 1
+    assert all(int(v) == pow(int(g[0, gi]), int(k), int(ns[gi]))
+               for v, gi, k in zip(got, gmap, e))
+    ew, grow, rows, T, nwins, woffs, nb = cap["a"]
+    assert T[0].shape[2] == G
+    assert torch.equal(real(ew, grow, rows, T, nwins, woffs, nb),
+                       pr.fixed_plain(ew, grow, rows, T, nwins, woffs, nb))
+
+
 RAGGED_EC = (1, 7, 9, 33, 257)
 MAIN_EC = (256, 512)            # lane counts of the main path that the card tests run
 

@@ -1,13 +1,23 @@
-"""GG20 {t,n}-threshold ECDSA signing, session-batched
-(port of tpu_mpc/protocols/gg20/batch.py: the signing path).
+"""GG20 {t,n}-threshold ECDSA, session-batched
+(port of tpu_mpc/protocols/gg20/batch.py: keygen, key refresh and update,
+and signing).
 
+  keygen   4 rounds: ring-Pedersen setup (h1, h2, N_tilde), correct-key
+           proof, composite-dlog proofs both directions, Paillier bit-length
+           policing, Feldman VSS, dlog proofs of the x_i
   offline  6 rounds: MtA with Alice range proofs, T_i Pedersen commitments,
            R / R_bar + PDLwSlack, S_i + HomoElGamal consistency
   online   1 round: s_i broadcast
 
 Per-check boolean masks fold onto the culpable party like the reference's
-ErrorType { error_type, bad_actors }.  Keygen, blame, key refresh and the
-fault-injection seams of the reference wait for later slices.
+ErrorType { error_type, bad_actors }.  keygen draws from SessionRng in the
+reference's order and its primes are the reference's (host/primes.py), so a
+pinned seed gives the reference's keys value for value.  Blame, the signing
+fault-injection seams and the encrypted backup wait for a later slice.
+
+Serving: tile_key serves one key set over S sessions; repeat_key serves G
+key sets (take_key_sets of a keygen batch) over S sessions interleaved,
+session s on key group s % G, with the tables compressed at G groups.
 
 Two configurations, selected by TPU_MPC_TORCH_ENC_TABLES
 (zk/range_proofs.py:enc_tables_enabled; unset = tables on the card, none on
@@ -31,23 +41,60 @@ import dataclasses
 import numpy as np
 
 from ...core.limbs import batch_from_limbs
-from ...core.modctx import LazyMap
+from ...core.modctx import LazyMap, ModCtx
 from ...device import resolve_device, to_numpy
 from ...ec import secp256k1 as dec
 from ...hashes.fiat_shamir import commit_rows, point_hash_ints
-from ...host import ec as hec
+from ...host import ec as hec, primes
 from ...mta import mta
 from ...paillier import paillier as dp
 from ...utils.rng import SessionRng
 from ...vss import feldman
 from ...zk import sigma
 from ...zk.batch_verify import alice_verify_fast, pdl_slack_verify_fast
+from ...zk.paillier_zk import (
+    CompositeDLogStatementBatch,
+    composite_dlog_prove,
+    composite_dlog_verify,
+    correct_key_prove,
+    correct_key_verify,
+)
 from ...zk.pdl_slack import PDLwSlackStatementBatch, pdl_slack_prove
 from ...zk.range_proofs import DlogStatementBatch, PaillierCtxBatch, alice_prove
-from ..gg18.batch import _dk_take, _sc
+from ..gg18.batch import _dk_take, _sc, gen_paillier_batch
 
 Q = hec.N
 SECURITY = 256
+PAILLIER_MIN_BITS = 2047  # party_i.rs:49
+PAILLIER_MAX_BITS = 2048  # party_i.rs:50
+
+
+def generate_h1_h2_n_tilde_batch(S: int, n: int, bits: int, rng: SessionRng, device=None):
+    """Ring-Pedersen setup per slot (party_i.rs:137-156): host primes, then
+    h2 = h1^xhi mod N_tilde for every slot in one K1 launch."""
+    pt, qt = gen_paillier_batch(S, n, bits, rng)
+    n_tilde = pt * qt
+    phi = (pt - 1) * (qt - 1)
+    h1 = rng.below(n_tilde, (S, n))
+    xhi0 = np.empty((S, n), dtype=object)
+    xhi_inv0 = np.empty((S, n), dtype=object)
+    for s in range(S):
+        for i in range(n):
+            ph = int(phi[s, i])
+            while True:
+                x = rng._r.randrange(ph)
+                try:
+                    inv = pow(x, -1, ph)
+                    break
+                except ValueError:
+                    continue
+            xhi0[s, i] = x
+            xhi_inv0[s, i] = inv
+    ctx = ModCtx.from_ints(n_tilde, bits, device)
+    h2 = ctx.pow(h1, xhi0, bits)
+    xhi = phi - xhi0          # party_i.rs:152-153
+    xhi_inv = phi - xhi_inv0
+    return ctx, h1, h2, xhi, xhi_inv, phi
 
 
 @dataclasses.dataclass
@@ -70,6 +117,132 @@ class LocalKeyBatch20:
     @property
     def device(self):
         return self.ek.n_ctx.device
+
+
+@dataclasses.dataclass
+class KeygenResult20:
+    key: LocalKeyBatch20
+    ok: np.ndarray            # [S] every check of the session passed
+    bad_actors: np.ndarray    # [S, n] the parties a failed check points at
+
+
+def _bit_length_ok(ints, lo: int, hi: int) -> np.ndarray:
+    return np.vectorize(lambda v: lo <= int(v).bit_length() <= hi, otypes=[bool])(ints)
+
+
+def keygen(S: int, t: int, n: int, rng: SessionRng, paillier_bits: int = 2048,
+           corrupt: dict | None = None, safe_primes: bool = False,
+           device=None) -> KeygenResult20:
+    """GG20 {t,n} keygen for S independent key sets (rounds 1-4 of
+    party_i.rs), every party of every set at once.  Draws from rng in the
+    reference's order: u, the Paillier seeds, the N_tilde seeds, h1, the
+    xhi rejection loop, blind, the two composite-dlog r, the Feldman
+    coefficients, the dlog nonces.
+
+    safe_primes=True draws the Paillier factors as safe primes
+    (Keys::create_safe_prime); N_tilde stays on random primes either way, as
+    in the reference.  corrupt={"small_paillier": [i, ...]}: those parties
+    present a Paillier modulus of half the width, with honest proofs for
+    it, so only the bit-length policy must catch them.  In the tables
+    configuration the key's h1/h2 and randomizer tables are built at the
+    end, on the key batch before any tiling."""
+    dev = resolve_device(device)
+    sc = lambda v: _sc(v, dev)
+    u = rng.scalars((S, n))
+    y_i = dec.mul_generator(sc(u))
+    p_fac, q_fac = gen_paillier_batch(S, n, paillier_bits, rng, safe=safe_primes)
+    if corrupt and corrupt.get("small_paillier"):
+        for pi in corrupt["small_paillier"]:
+            for s in range(S):
+                p_fac[s, pi] = primes.gen_prime(paillier_bits // 4, rng._r)
+                q_fac[s, pi] = primes.gen_prime(paillier_bits // 4, rng._r)
+    ns = p_fac * q_fac
+    ek = PaillierCtxBatch.from_ints(ns, paillier_bits, dev).attach_sk(p_fac, q_fac)
+    dk = dp.BatchDecryptionKey.from_ints(p_fac, q_fac, paillier_bits)
+    nt_ctx, h1, h2, xhi, xhi_inv, _ = generate_h1_h2_n_tilde_batch(
+        S, n, paillier_bits, rng, dev)
+    dlog_stmt = DlogStatementBatch(ctx=nt_ctx, h1=h1, h2=h2)
+
+    # round 1 broadcast: com(y_i), correct-key, composite-dlog both ways
+    blind = rng.bits(SECURITY, (S, n))
+    y_ints = point_hash_ints(y_i)
+    com = commit_rows(y_ints, blind)
+    ck_proof = correct_key_prove(ek.n_ctx, (p_fac - 1) * (q_fac - 1))
+    stmt_h1 = CompositeDLogStatementBatch(ctx=nt_ctx, g=h1, ni=h2)
+    stmt_h2 = CompositeDLogStatementBatch(ctx=nt_ctx, g=h2, ni=h1)
+    cd_proof_h1 = composite_dlog_prove(stmt_h1, xhi, rng)
+    cd_proof_h2 = composite_dlog_prove(stmt_h2, xhi_inv, rng)
+
+    # round 2: verify everything (party_i.rs:260-320)
+    com_ok = commit_rows(y_ints, blind) == com
+    ck_ok = correct_key_verify(ck_proof, ek.n_ctx)
+    cd_ok = (composite_dlog_verify(cd_proof_h1, stmt_h1)
+             & composite_dlog_verify(cd_proof_h2, stmt_h2))
+    lo, hi = ((PAILLIER_MIN_BITS, PAILLIER_MAX_BITS) if paillier_bits == 2048
+              else (paillier_bits - 1, paillier_bits))
+    bitlen_ok = _bit_length_ok(ns, lo, hi) & _bit_length_ok(nt_ctx.n_ints, lo, hi)
+
+    vss, shares = feldman.share(t, n, u, rng, dev)
+
+    # round 3: share validation, x_i, dlog proof
+    vss_ok = np.ones((S, n), dtype=bool)
+    for j in range(n):
+        vss_ok &= feldman.validate_share(vss, shares[:, :, j], j)
+    c0_ok = to_numpy(dec.point_eq(feldman.point_index(vss.commitments, 0), y_i))
+    x = np.mod(np.sum(shares, axis=1), Q)
+    y = dec.point_sum(y_i, axis=1)
+    dlog_proofs = sigma.dlog_prove(sc(x), rng)
+
+    # round 4: the dlog proofs, and each pk_j against the VSS commitments
+    dlog_ok = sigma.dlog_verify(dlog_proofs)
+    xi_ok = np.ones((S, n), dtype=bool)
+    for j in range(n):
+        xi_com = dec.point_sum(feldman.commitment_eval(vss, j), axis=1)   # [S]
+        pk_j = dec.point_index_axis(dlog_proofs.pk, j, 1)
+        xi_ok[:, j] = to_numpy(dec.point_eq(xi_com, pk_j))
+
+    bad = ~(com_ok & ck_ok & cd_ok & bitlen_ok & vss_ok & c0_ok & dlog_ok & xi_ok)
+    # the tables of the tables configuration, built while the key batch is
+    # small (before any tiling): a no-op in the uniform configuration
+    dlog_stmt.ensure_tables()
+    ek.ensure_enc_tables()
+    key = LocalKeyBatch20(
+        S=S, t=t, n=n, paillier_bits=paillier_bits, p=p_fac, q=q_fac, ek=ek, dk=dk,
+        dlog_stmt=dlog_stmt, u=u, x=x, y=y, y_i=y_i, vss=vss,
+    )
+    return KeygenResult20(key=key, ok=~bad.any(axis=1), bad_actors=bad)
+
+
+def refresh_private_key(key: LocalKeyBatch20, factor_ints, rng: SessionRng,
+                        safe_primes: bool = False) -> LocalKeyBatch20:
+    """Proactive key rotation (party_i.rs:459-499): u_i += factor, and a
+    fresh Paillier keypair and ring-Pedersen setup per slot (random primes,
+    or safe Paillier primes with safe_primes=True).  factor_ints [S, n]: a
+    refresh ceremony supplies zero-sum factors so that y is unchanged; like
+    the reference, this applies whatever it is given.  The new h1/h2
+    tables are built in the tables configuration; the randomizer tables are
+    not (as in the reference)."""
+    S, n, bits, dev = key.S, key.n, key.paillier_bits, key.device
+    u_new = np.mod(key.u + np.mod(np.asarray(factor_ints, dtype=object), Q), Q)
+    y_i_new = dec.mul_generator(_sc(u_new, dev))
+    p_fac, q_fac = gen_paillier_batch(S, n, bits, rng, safe=safe_primes)
+    nt_ctx, h1, h2, _, _, _ = generate_h1_h2_n_tilde_batch(S, n, bits, rng, dev)
+    stmt = DlogStatementBatch(ctx=nt_ctx, h1=h1, h2=h2).ensure_tables()
+    return dataclasses.replace(
+        key, u=u_new, y_i=y_i_new, y=dec.point_sum(y_i_new, axis=1), p=p_fac, q=q_fac,
+        ek=PaillierCtxBatch.from_ints(p_fac * q_fac, bits, dev).attach_sk(p_fac, q_fac),
+        dk=dp.BatchDecryptionKey.from_ints(p_fac, q_fac, bits), dlog_stmt=stmt,
+    )
+
+
+def update_private_key(key: LocalKeyBatch20, factor_u, factor_x) -> LocalKeyBatch20:
+    """PartyPrivate::update_private_key (party_i.rs:513-523): additive
+    update of u_i and x_i; Paillier and ring-Pedersen untouched."""
+    u_new = np.mod(key.u + np.asarray(factor_u, dtype=object), Q)
+    x_new = np.mod(key.x + np.asarray(factor_x, dtype=object), Q)
+    y_i_new = dec.mul_generator(_sc(u_new, key.device))
+    return dataclasses.replace(key, u=u_new, x=x_new, y_i=y_i_new,
+                               y=dec.point_sum(y_i_new, axis=1))
 
 
 def _ints(v) -> np.ndarray:
@@ -151,6 +324,47 @@ def tile_key(key1: LocalKeyBatch20, S: int) -> LocalKeyBatch20:
         y=tile_pt(key1.y), y_i=tile_pt(key1.y_i),
         vss=feldman.VssSchemeBatch(t=key1.vss.t, n=key1.vss.n,
                                    commitments=tile_pt(key1.vss.commitments)),
+    )
+
+
+def take_key_sets(key: LocalKeyBatch20, G: int) -> LocalKeyBatch20:
+    """The first G key sets of a key batch (e.g. a keygen of S >= G sets),
+    as the JAX package's multi-tenant bench loads them
+    (benches/group_bench.py:_load_group_key).  The tables are sliced along
+    with the key sets, not rebuilt."""
+    if not 1 <= G <= key.S:
+        raise ValueError(f"take_key_sets: G = {G} outside [1, {key.S}]")
+    idx = np.arange(G)
+    first = lambda a: a[:G]
+    pt = lambda P: dec.Point(*(c[:G] for c in P))
+    return LocalKeyBatch20(
+        S=G, t=key.t, n=key.n, paillier_bits=key.paillier_bits,
+        p=first(key.p), q=first(key.q), ek=key.ek.take(idx, 0), dk=key.dk.map(first),
+        dlog_stmt=key.dlog_stmt.take(idx, 0), u=first(key.u), x=first(key.x),
+        y=pt(key.y), y_i=pt(key.y_i),
+        vss=feldman.VssSchemeBatch(t=key.vss.t, n=key.vss.n, commitments=pt(key.vss.commitments)),
+    )
+
+
+def repeat_key(keyG: LocalKeyBatch20, S: int) -> LocalKeyBatch20:
+    """A G-key-set batch -> S sessions, interleaved: session s uses key
+    group s % G (multi-tenant serving, benches/group_bench.py:_repeat_key).
+    The tables stay compressed at G groups behind the gmap, and the batch
+    verification keeps one product per group."""
+    G = keyG.S
+    if S % G:
+        raise ValueError(f"repeat_key: S = {S} is not a multiple of G = {G}")
+    R = S // G
+    rep_np = lambda a: np.tile(a, (R,) + (1,) * (a.ndim - 1))
+    rep_pt = lambda P: dec.Point(*(c.repeat((R,) + (1,) * (c.dim() - 1)) for c in P))
+    return LocalKeyBatch20(
+        S=S, t=keyG.t, n=keyG.n, paillier_bits=keyG.paillier_bits,
+        p=rep_np(keyG.p), q=rep_np(keyG.q),
+        ek=keyG.ek.repeat_interleaved(R), dk=keyG.dk.map(rep_np),
+        dlog_stmt=keyG.dlog_stmt.repeat_interleaved(R),
+        u=rep_np(keyG.u), x=rep_np(keyG.x), y=rep_pt(keyG.y), y_i=rep_pt(keyG.y_i),
+        vss=feldman.VssSchemeBatch(t=keyG.vss.t, n=keyG.vss.n,
+                                   commitments=rep_pt(keyG.vss.commitments)),
     )
 
 

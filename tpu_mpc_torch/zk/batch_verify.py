@@ -11,6 +11,11 @@ attribute blame, exactly as the reference does.
 
 TPU_MPC_TORCH_BATCH_VERIFY: "1" forces the batched checks on, "0" off;
 unset enables them at S >= 8 sessions.
+
+Multi-tenant serving (G key groups interleaved over the sessions axis,
+session s on group s % G) keeps one batched product per group: _grouping
+finds G from the key batch's n_groups hint and verifies that the moduli and
+bases really repeat with period G.  STATS counts which path each call took.
 """
 
 from __future__ import annotations
@@ -37,6 +42,26 @@ from .range_proofs import (
 
 GAMMA_BITS = 128
 _MIN_SESSIONS = 8  # below this the per-session path is cheaper (launch cost)
+
+# calls since the last reset_stats(): "grouped" counts the batched checks by
+# their group count G, "per_session" the calls that ran the per-session
+# verifier (batching off or not applicable, or a failed batched equation)
+STATS = {"grouped": {}, "per_session": 0}
+
+
+def reset_stats() -> None:
+    STATS["grouped"] = {}
+    STATS["per_session"] = 0
+
+
+def _per_session(fn, *args):
+    STATS["per_session"] += 1
+    return fn(*args)
+
+
+def _grouped(G: int, ok):
+    STATS["grouped"][G] = STATS["grouped"].get(G, 0) + 1
+    return ok
 
 
 def _enabled(S: int) -> bool:
@@ -124,7 +149,7 @@ def alice_verify_fast(
         stmt.ctx.n_ints, stmt.h1, stmt.h2, ek.n,
     ) if _enabled(S) else None
     if G is None:
-        return alice_verify(proof, cipher, ek, stmt)
+        return _per_session(alice_verify, proof, cipher, ek, stmt)
 
     # sessions axis viewed as (R, G): reductions run over R, keeping one
     # product per key group (G=1 == the fully-shared serving pattern)
@@ -181,10 +206,10 @@ def alice_verify_fast(
     eq_ok = np.array_equal(P_w, np.asarray(resolve(rhs_w0_l), dtype=object)) and \
         np.array_equal(P_u, np.asarray(rhs_u0, dtype=object))
     if eq_ok:
-        return cheap_ok
+        return _grouped(G, cheap_ok)
     # a batched equation failed: replay per-session to attribute blame
     # (see module docstring — this is the <= 1/2-survival cheat path)
-    return alice_verify(proof, cipher, ek, stmt)
+    return _per_session(alice_verify, proof, cipher, ek, stmt)
 
 
 def pdl_slack_verify_fast(
@@ -202,7 +227,7 @@ def pdl_slack_verify_fast(
         stmt.dlog.ctx.n_ints, stmt.dlog.h1, stmt.dlog.h2, stmt.ek.n,
     ) if _enabled(S) else None
     if G is None:
-        return pdl_slack_verify(proof, stmt)
+        return _per_session(pdl_slack_verify, proof, stmt)
 
     R = S // G
     resh = lambda a: np.broadcast_to(
@@ -251,5 +276,5 @@ def pdl_slack_verify_fast(
     eq_ok = np.array_equal(P_u3, np.asarray(resolve(rhs_u30_l), dtype=object)) and \
         np.array_equal(P_u2, np.asarray(rhs_u20, dtype=object))
     if eq_ok:
-        return cheap_ok
-    return pdl_slack_verify(proof, stmt)
+        return _grouped(G, cheap_ok)
+    return _per_session(pdl_slack_verify, proof, stmt)

@@ -84,6 +84,24 @@ def _table_group_rows(gmap, bdims, batch_shape, shape):
     return np.broadcast_to(rows, shape)
 
 
+def _gmap_rows(gmap, T, batch_shape, shape):
+    """The flattened table-group rows of a call of batch `shape` into the
+    tables T compressed behind gmap (None without gmap)."""
+    return None if gmap is None else _table_group_rows(gmap, T.shape[2:-1], batch_shape, shape)
+
+
+def _take_gmap(gmap, indices, axis: int):
+    """The gmap of a take: sliced by a sessions-axis take, else unchanged."""
+    return np.take(gmap, indices, axis=0) if axis == 0 and gmap is not None else gmap
+
+
+def _rep_lead(a, R: int, lead: int = 0):
+    """np.tile of axis `lead` R times (interleaved: new index i -> old i % B)."""
+    if a is None:
+        return None
+    return np.tile(a, (1,) * lead + (R,) + (1,) * (a.ndim - lead - 1))
+
+
 def _grow_tables(T, extra: int):
     """Insert `extra` size-1 table batch dims after the [nw, 16] axes, so
     that a call with extra leading batch dims (e.g. the stacked gamma/w path
@@ -100,12 +118,22 @@ class DlogStatementBatch:
     fixed for the life of a key, so every ring-Pedersen commitment can run
     with zero squarings (K2).  Build once on the small root statement
     (ensure_tables) before tile/take/expand; derived views carry the tables
-    along their batch dims."""
+    along their batch dims.
+
+    Multi-tenant serving (repeat_interleaved): G distinct key groups serve
+    S = G*R sessions, session s using group s % G.  The tables stay
+    compressed at G rows on their sessions axis; `gmap` [S] maps each
+    session to its group row and routes every K2 product through it, and
+    n_groups = G tells the grouped batch verification (zk/batch_verify.py)
+    which layout to verify.  The reference falls back to pow_prod off the
+    TPU for compressed tables; the port keeps the table path on the CPU too,
+    since K2's plain version takes gmap (same integers either way)."""
 
     ctx: ModCtx               # N_tilde moduli
     h1: np.ndarray
     h2: np.ndarray
     tables_rns: tuple | None = None   # (T1, T2), batch dims at positions 2..-2
+    gmap: np.ndarray | None = None    # [S] session -> key group (compressed tables)
     n_groups: int = 1
 
     _TABLE_MAX_BASES = 64  # tables cost ~26 MB per statement at 2048 bits (int32)
@@ -144,7 +172,10 @@ class DlogStatementBatch:
         else ModCtx.pow_prod (K1).  hints (required) are exponent widths
         from the sampling domain or the clamped field width."""
         if self.tables_rns is not None:
-            return self.ctx.pow_fixed_prod_rns(self.tables_rns, [e1, e2], hints, sync=sync)
+            shape = np.broadcast_shapes(np.shape(e1), np.shape(e2), self.ctx.batch_shape)
+            gmap = _gmap_rows(self.gmap, self.tables_rns[0], self.ctx.batch_shape, shape)
+            return self.ctx.pow_fixed_prod_rns(self.tables_rns, [e1, e2], hints, sync=sync,
+                                               gmap=gmap)
         return self.ctx.pow_prod([self.h1, self.h2], [e1, e2], ebits_hints=hints, sync=sync)
 
     def _tabs(self, fn):
@@ -153,11 +184,16 @@ class DlogStatementBatch:
     def take(self, indices, axis: int) -> "DlogStatementBatch":
         from ..core.modctx import _take_t
 
+        # group-compressed tables index G groups, not S sessions, on their
+        # sessions axis: a sessions-axis take slices gmap, never the tables
+        take_tabs = axis > 0 or self.gmap is None
         return DlogStatementBatch(
             ctx=self.ctx.take(indices, axis),
             h1=np.take(self.h1, indices, axis=axis),
             h2=np.take(self.h2, indices, axis=axis),
-            tables_rns=self._tabs(lambda T: _take_t(T, indices, 2 + axis)),
+            tables_rns=self._tabs(lambda T: _take_t(T, indices, 2 + axis)) if take_tabs
+            else self.tables_rns,
+            gmap=_take_gmap(self.gmap, indices, axis),
             n_groups=self.n_groups,
         )
 
@@ -167,6 +203,7 @@ class DlogStatementBatch:
             h1=np.expand_dims(self.h1, axis),
             h2=np.expand_dims(self.h2, axis),
             tables_rns=self._tabs(lambda T: T.unsqueeze(2 + axis)),
+            gmap=self.gmap,
             n_groups=self.n_groups,
         )
 
@@ -176,6 +213,7 @@ class DlogStatementBatch:
             ctx=self.ctx, h1=self.h2, h2=self.h1,
             tables_rns=None if self.tables_rns is None
             else (self.tables_rns[1], self.tables_rns[0]),
+            gmap=self.gmap,
             n_groups=self.n_groups,
         )
 
@@ -185,7 +223,17 @@ class DlogStatementBatch:
         tile_np = lambda a: np.broadcast_to(a, (S,) + a.shape[1:]).copy()
         return DlogStatementBatch(ctx=self.ctx.tile(S), h1=tile_np(self.h1),
                                   h2=tile_np(self.h2), tables_rns=self.tables_rns,
-                                  n_groups=self.n_groups)
+                                  gmap=self.gmap, n_groups=self.n_groups)
+
+    def repeat_interleaved(self, R: int) -> "DlogStatementBatch":
+        """G-group batch -> S = G*R sessions, interleaved (session s uses
+        group s % G).  The tables stay compressed at G rows behind gmap."""
+        G = int(self.ctx.batch_shape[0])
+        return DlogStatementBatch(
+            ctx=self.ctx.repeat_lead(R), h1=_rep_lead(self.h1, R), h2=_rep_lead(self.h2, R),
+            tables_rns=self.tables_rns, gmap=np.tile(np.arange(G, dtype=np.int64), R),
+            n_groups=G,
+        )
 
 
 def _jacobi(a: int, n: int) -> int:
@@ -241,7 +289,13 @@ class PaillierCtxBatch:
     (a + kN)^N = a^N mod N^2.  Every r^N then is a zero-squaring K2 product
     from the h table, and a prover's response s = r^e beta folds into one
     g^(t_r e + t_beta) from the g table.  Wire format, proofs and blame
-    replays are unchanged."""
+    replays are unchanged.
+
+    Multi-tenant serving (repeat_interleaved): the randomizer tables stay
+    compressed at G key groups behind `gmap`, as in DlogStatementBatch.  The
+    reference samples uniform units instead off the TPU when its tables are
+    compressed; the port keeps the table path on the CPU too (K2's plain
+    version takes gmap), so a CPU run draws r = g^t there."""
 
     n_ctx: ModCtx
     nn_ctx: ModCtx
@@ -257,6 +311,7 @@ class PaillierCtxBatch:
     enc_g: np.ndarray | None = None      # [...batch] the derived base g
     enc_tab_g: object = None             # table of g mod N   [nw, 16, ...batch, CH]
     enc_tab_h: object = None             # table of h mod N^2 [nw, 16, ...batch, CH]
+    gmap: np.ndarray | None = None       # [S] session -> key group (compressed tables)
     n_groups: int = 1
 
     _ENC_EBITS = 64                      # t < N * 2^_ENC_EBITS
@@ -338,10 +393,12 @@ class PaillierCtxBatch:
             t = rng.below(n_b << self._ENC_EBITS, shape)
             eb = (self.n_ctx.bits + self._ENC_EBITS,)
             extra = self._extra_dims(shape)
+            gmap = _gmap_rows(self.gmap, self.enc_tab_g, self.n_ctx.batch_shape, shape)
             tab_g = _grow_tables(self.enc_tab_g, extra)
             tab_h = _grow_tables(self.enc_tab_h, extra)
-            u_fn = lambda: self.n_ctx.pow_fixed_prod_rns((tab_g,), [t], eb, sync=False)
-            un_l = self.nn_ctx.pow_fixed_prod_rns((tab_h,), [t], eb, sync=sync)
+            u_fn = lambda: self.n_ctx.pow_fixed_prod_rns((tab_g,), [t], eb, sync=False,
+                                                         gmap=gmap)
+            un_l = self.nn_ctx.pow_fixed_prod_rns((tab_h,), [t], eb, sync=sync, gmap=gmap)
             u = DeferredLaunch(u_fn) if defer_value else resolve(u_fn())
             return (u, un_l, t) if want_t else (u, un_l)
         u = rng.units_below(n_b, shape)
@@ -357,7 +414,8 @@ class PaillierCtxBatch:
         exps = np.asarray(exps, dtype=object)
         shape = np.broadcast_shapes(exps.shape, self.n_ctx.batch_shape)
         T = _grow_tables(self.enc_tab_g, self._extra_dims(shape))
-        return self.n_ctx.pow_fixed_prod_rns((T,), [exps], (ebits_hint,), sync=sync)
+        gmap = _gmap_rows(self.gmap, self.enc_tab_g, self.n_ctx.batch_shape, shape)
+        return self.n_ctx.pow_fixed_prod_rns((T,), [exps], (ebits_hint,), sync=sync, gmap=gmap)
 
     def decrypt_sk(self, c_ints, sync: bool = True):
         """CRT Paillier decrypt: the two half-width c^{x-1} mod x^2 modexps
@@ -437,17 +495,21 @@ class PaillierCtxBatch:
             sk_pinv_q=np0(self.sk_pinv_q),
             enc_g=np0(self.enc_g),
             enc_tab_g=tab(self.enc_tab_g), enc_tab_h=tab(self.enc_tab_h),
-            n_groups=self.n_groups,
+            gmap=self.gmap, n_groups=self.n_groups,
         )
 
     def take(self, indices, axis: int) -> "PaillierCtxBatch":
         from ..core.modctx import _take_t
 
-        return self._map(
+        # group-compressed tables: a sessions-axis take slices gmap instead
+        take_tabs = axis > 0 or self.gmap is None
+        out = self._map(
             lambda c, lead=0: c.take(indices, axis + lead),
             lambda a, lead=0: np.take(a, indices, axis=axis + lead),
-            lambda T: _take_t(T, indices, 2 + axis),
+            (lambda T: _take_t(T, indices, 2 + axis)) if take_tabs else (lambda T: T),
         )
+        out.gmap = _take_gmap(self.gmap, indices, axis)
+        return out
 
     def expand(self, axis: int) -> "PaillierCtxBatch":
         return self._map(
@@ -460,6 +522,22 @@ class PaillierCtxBatch:
         # sk leaves and the randomizer tables keep their size-1 sessions axis
         return dataclasses.replace(self, n_ctx=self.n_ctx.tile(S),
                                    nn_ctx=self.nn_ctx.tile(S))
+
+    def repeat_interleaved(self, R: int) -> "PaillierCtxBatch":
+        """G-group batch -> S = G*R sessions, interleaved (session s uses
+        group s % G); the randomizer tables stay compressed behind gmap."""
+        G = int(self.n_ctx.batch_shape[0])
+        rep = lambda a: _rep_lead(a, R)
+        return dataclasses.replace(
+            self,
+            n_ctx=self.n_ctx.repeat_lead(R), nn_ctx=self.nn_ctx.repeat_lead(R),
+            sk_ctx=None if self.sk_ctx is None else self.sk_ctx.repeat_lead(R, axis=1),
+            sk_e=_rep_lead(self.sk_e, R, lead=1),
+            sk_pp=rep(self.sk_pp), sk_cr=rep(self.sk_cr), sk_p=rep(self.sk_p),
+            sk_q=rep(self.sk_q), sk_hp=rep(self.sk_hp), sk_hq=rep(self.sk_hq),
+            sk_pinv_q=rep(self.sk_pinv_q), enc_g=rep(self.enc_g),
+            gmap=np.tile(np.arange(G, dtype=np.int64), R), n_groups=G,
+        )
 
 
 def pts_from_xy(xs, ys, device=None):
