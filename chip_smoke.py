@@ -15,7 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
              lane tile (1, L - 1, L + 1; 513 for K1), with one modulus per
              lane inside a tile, K2 with three key groups in every tile,
              and K1 at 4096 bits, whose tensor-core planes partly stream
-             from L2.  K3 (ns = 2 and 4, an infinity base and k = 0) and
+             from L2 (also at 512 lanes with 256-bit exponents, blame's
+             shape).  K3 (ns = 2 and 4, an infinity base and k = 0) and
              K4 (bases G and BASE_POINT2, digits 0 and 255 in every lane)
              at lane counts 1, 7, 9, 33, 257; K3 timed at 128, 256 and 512
              lanes, K4 at 256 and 512 for both bases; K5 (lanes with Z = 0
@@ -54,11 +55,27 @@ Phases (any failure exits non-zero and prints no result line):
              kernels and take the G = 8 batch verification with no
              per-session fallback; every signature verifies under its own
              group's y.
+  6. blame   GG20 identifiable aborts on the slice's tables key (S = 128,
+             signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
+             (step 6) or the committed g_gamma ("decommit") of per-session
+             corruption matrices, a clean offline_stage with s_i corrupted
+             at sign_online (step 7), and forged phase-6 ECDDH proofs; every
+             phase5/6/7_blame list must equal its session's spec, off.ok fail
+             exactly in the corrupted sessions, honest sessions verify; every
+             K1-K5 launch shape held against its plain version; prints each
+             blame function's seconds and the host Paillier open loop's;
+  7. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
+             every signer pair reconstructs sum u, every launch shape held),
+             then GG18 sign at S = 128 on the slice's tables key for the
+             signer subsets [0, 1], [1, 2], [0, 2] (one warm-up pass with the
+             holds, then one timed pass each): every signature verifies with
+             low s; prints the prime-search seconds and sig/s.
 Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
-launches_multitenant: the first timed multi-tenant pass), the card's name
-and power limit, and last {"ok": true, "device": {...}}.  It imports nothing
-of jax or of the reference package tpu_mpc.
+launches_multitenant: the first timed multi-tenant pass; launches_blame:
+the blame phase; launches_gg18: the timed GG18 [0, 1] pass), the card's
+name and power limit, and last {"ok": true, "device": {...}}.  It imports
+nothing of jax or of the reference package tpu_mpc.
 """
 
 from __future__ import annotations
@@ -79,6 +96,7 @@ K3_TIMED = (128, 256, 512)
 K4_TIMED = (256, 512)                # the lane counts of K4 on the main path
 K5_TIMED = (256, 512)                # K5 timed here (the main path runs 128 to 1792)
 K2_LANES = 256                       # S*tp*(tp-1)
+K1_BLAME_LANES = 512                 # S*tp*tp: phase-5 blame's c_A^gamma mod N^2
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
 # arithmetic is 32x32-bit integer multiply-adds (IMAD, one each, widening or
@@ -289,6 +307,38 @@ def check_k1(dev, rnd):
             require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(ns[i])),
                     f"K1 ragged B={B} lane {i} != python pow")
         log(f"K1 2048b ragged lanes={B} (tile {L}), one modulus per lane: exact")
+    # the shape GG20 blame adds: c_A^gamma mod N^2 over [S, tp, tp] = 512
+    # lanes at S = 128, 4096-bit moduli, 256-bit exponents; one modulus per lane
+    bits, B = 4096, K1_BLAME_LANES
+    par = RnsParams(bits)
+    ns = np.asarray(_odd_moduli(rnd, bits, B, par), dtype=object)
+    base = np.asarray([rnd.getrandbits(bits) % int(v) for v in ns], dtype=object)
+    expo = np.asarray([rnd.getrandbits(256) for _ in range(B)], dtype=object)
+    expo[0] = 0
+    x = torch.as_tensor(batch_to_limbs(base, par.Lin), device=dev)
+    e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(256))), device=dev)
+    rows = RnsCtx.from_ints(ns, bits, dev).rows
+    for emit in (True, False):
+        out_k = pr.exp_call(x, e, rows, bits, emit_planes=emit)
+        out_p = pr.exp_plain(x, e, rows, bits, emit_planes=emit)
+        torch.cuda.synchronize()
+        err = _maxerr(out_k, out_p)
+        worst = max(worst, err)
+        require(err == 0 and out_k.shape == out_p.shape,
+                f"K1 {bits}b lanes={B} 256-bit exponents emit={emit}: kernel != plain "
+                f"(max |diff| {err})")
+    got = RnsLazy((pr.exp_call(x, e, rows, bits),), (B,), ns, par.MA).ints()
+    for i in (0, 1, 7, 8, 255, 256, 510, 511):
+        require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(ns[i])),
+                f"K1 {bits}b lanes={B} 256-bit exponents: lane {i} != python pow")
+    ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, True), 3)
+    pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, True), 1)
+    bms, bby, ims = _k1_bound(par, B, e.shape[1], x, e, rows, dev)
+    entry.update(ms_4096_e256=ms, plain_ms_4096_e256=pms, bound_ms_4096_e256=bms,
+                 imad_bound_ms_4096_e256=ims)
+    log(f"K1 {bits}b lanes={B} (one modulus per lane) 256-bit exponents, the blame shape: exact "
+        f"against plain and python pow; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound "
+        f"{bms:.4f} ms ({bby}), IMAD bound {ims:.4f} ms")
     entry["max_abs_err"] = worst
     return entry
 
@@ -761,6 +811,36 @@ class Instrument:
         return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
 
 
+class _Timed:
+    """Patches mod.attr for the life of a `with` block and accumulates its
+    calls' host seconds (sync: the device's work inside them too)."""
+
+    def __init__(self, mod, attr, sync: bool = False):
+        self.mod, self.attr, self.fn, self.sync = mod, attr, getattr(mod, attr), sync
+        self.secs, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        def run(*a, **kw):
+            if self.sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                if self.sync:
+                    torch.cuda.synchronize()
+                self.secs += time.perf_counter() - t
+                self.calls += 1
+        setattr(self.mod, self.attr, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.fn)
+        return False
+
+
 def _kernel_summary(inst, launches) -> str:
     busy = inst.busy()
     per = {k: round(busy.get(k, 0.0), 3) for k in launches}
@@ -828,37 +908,17 @@ def run_keygen(dev, repo):
         with open(os.path.join(repo, "benches", fname)) as f:
             d = json.load(f)
         require(int(d["seed"]) == seed, f"keygen: {fname} is not the key of seed {seed:#x}")
-        secs = {"primes": 0.0, "tables": 0.0}
-        saved = [(gg20, "gen_paillier_batch"), (DlogStatementBatch, "ensure_tables"),
-                 (PaillierCtxBatch, "ensure_enc_tables")]
-        orig = {a: getattr(m, a) for m, a in saved}
-
-        def timing(fn, what, sync):
-            def run(*a, **kw):
-                if sync:
-                    torch.cuda.synchronize()
-                t = time.perf_counter()
-                r = fn(*a, **kw)
-                if sync:
-                    torch.cuda.synchronize()
-                secs[what] += time.perf_counter() - t
-                return r
-            return run
-
-        gg20.gen_paillier_batch = timing(orig["gen_paillier_batch"], "primes", False)
-        DlogStatementBatch.ensure_tables = timing(orig["ensure_tables"], "tables", True)
-        PaillierCtxBatch.ensure_enc_tables = timing(orig["ensure_enc_tables"], "tables", True)
         torch.cuda.synchronize()
         kernels.reset_launches()
-        try:
-            with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
-                t0 = time.perf_counter()
-                res = gg20.keygen(S, 1, 3, SessionRng(seed), PAILLIER_BITS, device=dev)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-        finally:
-            for m, a in saved:
-                setattr(m, a, orig[a])
+        with _Timed(gg20, "gen_paillier_batch") as primes_t, \
+                _Timed(DlogStatementBatch, "ensure_tables", sync=True) as tab_h, \
+                _Timed(PaillierCtxBatch, "ensure_enc_tables", sync=True) as tab_enc, \
+                Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+            t0 = time.perf_counter()
+            res = gg20.keygen(S, 1, 3, SessionRng(seed), PAILLIER_BITS, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        secs = {"primes": primes_t.secs, "tables": tab_h.secs + tab_enc.secs}
         launches = dict(kernels.LAUNCHES)
         key = res.key
         require(res.ok.all() and not res.bad_actors.any(),
@@ -994,7 +1054,7 @@ def run_slice(dev, material, host_profile: bool = False):
         log("slice[tables]: host profile of one more pass (cProfile, by own time)\n"
             + buf.getvalue())
     # the main path is the tables configuration: its first timed pass
-    return next(r[1] for r in runs if r[0] == "tables")
+    return next(r[1] for r in runs if r[0] == "tables"), keys["tables"]
 
 
 # --------------------------------------------------------------------------
@@ -1104,6 +1164,215 @@ def run_multitenant(dev, res16):
     return first
 
 
+# --------------------------------------------------------------------------
+# phase 6: identifiable aborts (blame)
+# --------------------------------------------------------------------------
+
+BLAME_PATTERNS = {5: [[], [0], [1], [0, 1]], 6: [[], [0], [1], [0, 1]],
+                  "decommit": [[], [0], [1]], 7: [[], [0], [1], [0, 1]]}
+
+
+def _spec(step, S) -> list:
+    """Session b's corrupted signer slots: pattern b % len of its step."""
+    pat = BLAME_PATTERNS[step]
+    return [pat[b % len(pat)] for b in range(S)]
+
+
+def run_blame(dev, key, held: set):
+    """GG20 identifiable aborts on the slice's tables key (S = 128, signers
+    [0, 1]): one offline_stage per corruption step (5, 6, "decommit"), each
+    with a per-session matrix (session b on pattern b % 4 of [[], [0], [1],
+    [0, 1]], b % 3 of [[], [0], [1]] for "decommit"), then its blame; a clean
+    offline_stage, sign_online with s_i doubled on the b % 4 matrix and
+    phase-7 blame; phase-6 blame of forged local proofs (sigma_0 doubled in
+    the sessions with b % 4 == 1).  Every blame list must equal its
+    session's spec (honest sessions []), off.ok must fail exactly in the
+    corrupted sessions, honest step-7 sessions must verify, every K1-K5
+    launch shape is held against its plain version on its first call, and
+    all five kernels must launch.  Kernel counts are set to 0 just before
+    the phase and read just after."""
+    import dataclasses
+
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.host import paillier as hp
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.protocols.gg20 import blame
+    from tpu_mpc_torch.utils.rng import SessionRng
+
+    os.environ[ENC_ENV] = "1"
+    S = key.S
+    rng = SessionRng(0xB1A3)
+    secs = {}
+
+    def timed(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    def offline(step):
+        corrupt = None if step is None else {"step": step, "parties": _spec(step, S)}
+        off = timed(f"offline_stage[{step}]", gg20.offline_stage, key, [0, 1], rng,
+                    corrupt=corrupt)
+        want = [True] * S if step is None else [not p for p in corrupt["parties"]]
+        require([bool(v) for v in off.ok] == want,
+                f"blame[{step}]: off.ok is not False exactly in the corrupted sessions")
+        return off
+
+    def gate(name, got, want):
+        require(got == want, f"blame: {name} lists differ from the spec: "
+                f"{[(b, g, w) for b, (g, w) in enumerate(zip(got, want)) if g != w][:4]}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+        off = offline(5)
+        gate("phase5_blame[5]", timed("phase5_blame[5]", blame.phase5_blame, key, off),
+             _spec(5, S))
+        off = offline(6)
+        with _Timed(hp, "open") as opens:
+            got = timed("phase6_blame[6]", blame.phase6_blame, key, off, rng)
+        gate("phase6_blame[6]", got, _spec(6, S))
+        off = offline("decommit")
+        gate("phase5_blame[decommit]",
+             timed("phase5_blame[decommit]", blame.phase5_blame, key, off), _spec("decommit", S))
+        off = offline(None)
+        gate("phase5_blame[clean]", timed("phase5_blame[clean]", blame.phase5_blame, key, off),
+             [[]] * S)
+        sig = timed("sign_online[7]", gg20.sign_online, off, MSG,
+                    corrupt={"step": 7, "parties": _spec(7, S)})
+        require([bool(v) for v in sig.sig_valid] == [not p for p in _spec(7, S)],
+                "blame[7]: the honest sessions must verify and the corrupted ones fail")
+        gate("phase7_blame", timed("phase7_blame", blame.phase7_blame, off, sig.s_i, MSG),
+             _spec(7, S))
+        forged = dataclasses.replace(off)
+        forged.sigma_i = off.sigma_i.copy()
+        for b in range(1, S, 4):
+            forged.sigma_i[b, 0] = int(off.sigma_i[b, 0]) * 2 % hec.N
+        proofs = timed("phase6_local_proofs[forged]", blame.phase6_local_proofs, forged, rng)
+        with _Timed(hp, "open") as opens2:
+            got = timed("phase6_blame[forged]", blame.phase6_blame, key, off, rng,
+                        ecddh_proofs=proofs)
+        gate("phase6_blame[forged]", got, [[0] if b % 4 == 1 else [] for b in range(S)])
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in launches if launches[k] == 0]
+    require(not missing, f"blame: kernels not launched: {missing}")
+    log(f"blame: S={S}, signers [0, 1], tables; every blame list equals its session's spec "
+        f"(steps 5, 6, decommit, 7 and forged phase-6 proofs; honest sessions []), off.ok "
+        f"False exactly in the corrupted sessions, honest step-7 sessions verify; seconds "
+        f"{json.dumps(secs)}")
+    log(f"blame: phase6_blame's host Paillier open loop ({opens.calls} opens at "
+        f"{key.paillier_bits} bits, pure python): {opens.secs:.2f} s of "
+        f"{secs['phase6_blame[6]']:.2f} s; forged run {opens2.calls} opens {opens2.secs:.2f} s "
+        f"of {secs['phase6_blame[forged]']:.2f} s")
+    log("blame: " + _kernel_summary(inst, launches))
+    log(f"blame: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; held "
+        f"against plain in this phase: {', '.join(inst.new_holds)}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: GG18
+# --------------------------------------------------------------------------
+
+GG18_KEYGEN = (16, 0x6618)          # S, SessionRng seed
+GG18_SUBSETS = ([0, 1], [1, 2], [0, 2])
+
+
+def run_gg18(dev, key, held: set):
+    """GG18 on the card.  keygen(16, 1, 3, SessionRng(0x6618), 2048): every
+    check passes, y = (sum u) G and the x shares of every signer pair
+    reconstruct sum u, every launch shape held against its plain version.
+    Then sign at S = 128 on the slice's tiled tables key (GG18's sign reads
+    S, t, x, ek, dk and y of it, which a GG20 key has): one warm-up pass
+    ([0, 1], every launch shape held), then one timed pass per subset [0, 1],
+    [1, 2], [0, 2], kernel counts set to 0 just before each and read just
+    after; each must launch all five kernels, every signature must verify
+    with low s and sig.ok.  Returns the launches of the timed [0, 1] pass."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.protocols.gg18 import batch as gg18
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.vss import feldman
+
+    os.environ[ENC_ENV] = "1"
+    S_kg, seed = GG18_KEYGEN
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst, \
+            _Timed(gg18, "gen_paillier_batch") as primes_t:
+        t0 = time.perf_counter()
+        res = gg18.keygen(S_kg, 1, 3, SessionRng(seed), PAILLIER_BITS, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    kg_launches = dict(kernels.LAUNCHES)
+    require(res.ok.all() and not res.bad_actors.any(),
+            f"gg18 keygen: a check failed: bad actors {res.bad_actors.tolist()}")
+    kg = res.key
+    y = ec.points_to_host_list(kg.y)
+    for b in range(S_kg):
+        total = sum(int(v) for v in kg.u[b]) % hec.N
+        require(y[b] == hec.mul(total), f"gg18 keygen: y != (sum u) G in key set {b}")
+        for pair in GG18_SUBSETS:
+            require(feldman.reconstruct(pair, [int(kg.x[b, j]) for j in pair]) == total,
+                    f"gg18 keygen: x shares of {pair} do not reconstruct sum u in key set {b}")
+    missing = [k for k in ("K1", "K3", "K4", "K5") if kg_launches[k] == 0]
+    require(not missing, f"gg18 keygen: kernels not launched: {missing}")
+    busy = inst.busy()
+    dev_s = sum(v for k, v in busy.items() if not k.startswith("K1 ")) / 1e3
+    log(f"gg18 keygen S={S_kg} (seed {seed:#x}, t=1, n=3, {PAILLIER_BITS}-bit Paillier): res.ok "
+        f"all true, y = (sum u) G and every signer pair's x shares reconstruct sum u; wall "
+        f"{dt:.2f} s (the plain holds included), host prime search {primes_t.secs:.2f} s "
+        f"({2 * S_kg * 3} primes of {PAILLIER_BITS // 2} bits), kernel device time {dev_s:.3f} s")
+    log("gg18 keygen: " + _kernel_summary(inst, kg_launches))
+    log(f"gg18 keygen: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; held "
+        f"against plain: {', '.join(inst.new_holds)}")
+
+    S = key.S
+    rng = SessionRng(0x618)
+
+    def one_pass(subset):
+        t = time.perf_counter()
+        sig = gg18.sign(key, subset, MSG, rng)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        # sig_valid: every signature checked by the pure-python ECDSA verifier under y
+        require(bool(np.asarray(sig.ok).all()) and sig.sig_valid.all(),
+                f"gg18 sign {subset}: a check or a signature failed")
+        require(all(int(v) <= hec.N // 2 for v in sig.s), f"gg18 sign {subset}: a high s")
+        return dt
+
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+        dt = one_pass(GG18_SUBSETS[0])
+    log(f"gg18 sign: warm-up pass {dt:.2f} s, S={S}; held against plain: "
+        f"{', '.join(inst.new_holds)}")
+    first = None
+    for subset in GG18_SUBSETS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Instrument(held) as inst:
+            dt = one_pass(subset)
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in launches if launches[k] == 0]
+        require(not missing, f"gg18 sign {subset}: kernels not launched: {missing}")
+        require(set(inst.by_shape) <= held, f"gg18 sign {subset}: launch shapes never held "
+                f"against plain: {sorted(set(inst.by_shape) - held)}")
+        log(f"gg18 sign {subset}: timed pass {dt:.2f} s, {S / dt:.2f} sig/s, S={S}, all {S} "
+            f"signatures verify with low s, sig.ok all true; " + _kernel_summary(inst, launches))
+        first = first or launches
+    return first
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1151,8 +1420,11 @@ def main() -> int:
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
     res16, material, kg_launches = run_keygen(dev, repo)
-    launches = run_slice(dev, material, host_profile="--host-profile" in sys.argv[1:])
+    launches, key128 = run_slice(dev, material, host_profile="--host-profile" in sys.argv[1:])
     mt_launches = run_multitenant(dev, res16)
+    held = set()
+    blame_launches = run_blame(dev, key128, held)
+    gg18_launches = run_gg18(dev, key128, held)
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -1171,6 +1443,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
             "launches_keygen": kg_launches[name], "launches_multitenant": mt_launches[name],
+            "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,

@@ -122,6 +122,42 @@ def test_k1_ragged_lanes_and_per_lane_moduli(dev):
         assert all(int(g) == pow(int(v), int(k), int(n)) for g, v, k, n in zip(got, b, e, ns))
 
 
+def test_k1_4096_bits_512_lanes_256_bit_exponents(dev):
+    """The K1 shape GG20 blame adds: c_A^gamma mod N^2 over [S, tp, tp] =
+    512 lanes at S = 128, 4096-bit moduli, 256-bit exponents; one modulus
+    per lane, both emit modes: kernel == plain, and python pow on a sample."""
+    import math
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
+    rnd = random.Random(4096)
+    bits, B = 4096, 512
+    par = RnsParams(bits)
+    ns = []
+    while len(ns) < B:
+        v = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
+        if math.gcd(v, par.MA * par.MB) == 1:
+            ns.append(v)
+    ns = np.asarray(ns, dtype=object)
+    b = np.asarray([rnd.getrandbits(bits) % int(n) for n in ns], dtype=object)
+    e = np.asarray([rnd.getrandbits(256) for _ in range(B)], dtype=object)
+    e[0] = 0
+    x = torch.as_tensor(batch_to_limbs(b, par.Lin), device=dev)
+    ew = torch.as_tensor(pr._pack_words(batch_to_limbs(e, nlimbs(256))), device=dev)
+    rows = RnsCtx.from_ints(ns, bits, dev).rows
+    for emit in (True, False):
+        assert torch.equal(pr.exp_call(x, ew, rows, bits, emit),
+                           pr.exp_plain(x, ew, rows, bits, emit))
+    n0 = kernels.LAUNCHES["K1"]
+    got = RnsLazy((pr.exp_call(x, ew, rows, bits),), (B,), ns, par.MA).ints()
+    assert kernels.LAUNCHES["K1"] == n0 + 1
+    for i in (0, 1, 7, 8, 255, 256, 510, 511):
+        assert int(got[i]) == pow(int(b[i]), int(e[i]), int(ns[i]))
+
+
 def test_k2_mixed_groups_in_a_tile(dev, monkeypatch):
     """K2 with lanes of three key groups interleaved inside each tile (the
     staged groups and the L2 path for a third), ragged lane counts, and the

@@ -1,7 +1,7 @@
 """Batched MtA / MtAwc share conversion (port of tpu_mpc/mta/mta.py).
 
-Alice encrypts a under her Paillier key (+ range proofs against each peer's
-ring-Pedersen setup); Bob homomorphically computes E(ab + beta') and proves
+Alice encrypts a under her Paillier key (message_a, + range proofs against
+each peer's ring-Pedersen setup); Bob homomorphically computes E(ab + beta') and proves
 knowledge of b and beta'; alpha + beta = ab mod q.  Ciphertext math is
 ModCtx modexps (kernel K1; Bob's randomizer r^N from the randomizer tables,
 kernel K2, in the tables configuration); decryption is
@@ -25,6 +25,7 @@ from ..zk.range_proofs import (
     DlogStatementBatch,
     PaillierCtxBatch,
     _mulmod,
+    alice_prove,
 )
 
 Q = hec.N
@@ -50,6 +51,29 @@ def paillier_encrypt_ints(ek: PaillierCtxBatch, m, r, rn=None) -> np.ndarray:
 def expand_tree_axis(dk: dp.BatchDecryptionKey, axis: int) -> dp.BatchDecryptionKey:
     """Insert a batch axis into every leaf (so leading dims right-align)."""
     return dk.map(lambda a: np.expand_dims(a, axis))
+
+
+@dataclasses.dataclass
+class MessageABatch:
+    """c = Enc_ek(a) and, when statements are given, one range proof per
+    peer statement (mta/mod.rs:34-38)."""
+
+    c: np.ndarray
+    range_proofs: AliceProofBatch | None
+
+
+def message_a(a_ints, ek: PaillierCtxBatch, randomness, stmts: DlogStatementBatch | None,
+              rng) -> MessageABatch:
+    """Alice's message: a [...] ints < q, randomness [...] < n.  With stmts
+    of a trailing peer axis (e.g. [S, n_peers]) a and randomness broadcast
+    against it and one proof per peer is made.  (GG18 calls it without
+    statements; GG20's offline_stage encrypts inline, with the
+    randomizer-table path.)"""
+    c = paillier_encrypt_ints(ek, a_ints, randomness)
+    proofs = None
+    if stmts is not None:
+        proofs = alice_prove(a_ints, c, ek, stmts, randomness, rng)
+    return MessageABatch(c=c, range_proofs=proofs)
 
 
 @dataclasses.dataclass
@@ -114,7 +138,10 @@ def msg_b_index(m: MessageBBatch, i: int) -> MessageBBatch:
 def verify_proofs_get_alpha(dk: dp.BatchDecryptionKey, msg_b: MessageBBatch, a_ints,
                             batch_shape, ek_sk: PaillierCtxBatch):
     """Alice decrypts alpha (decrypt_sk) and checks Bob's dlog proofs and the
-    EC identity b*a*G + beta'G == alpha G.  -> (alpha mod q, alpha_raw, ok)."""
+    EC identity b*a*G + beta'G == alpha G.  -> (alpha mod q, alpha_raw, ok).
+    Every caller decrypts through ek_sk (K1): the reference's GG18 passes no
+    ek_sk and decrypts on its CIOS limb path instead, to the same integers;
+    dk is kept for the reference's signature and not read."""
     alpha_raw = np.broadcast_to(np.asarray(ek_sk.decrypt_sk(msg_b.c), dtype=object),
                                 batch_shape)
     alpha = np.mod(alpha_raw, Q)

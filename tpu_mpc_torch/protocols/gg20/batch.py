@@ -1,6 +1,6 @@
-"""GG20 {t,n}-threshold ECDSA, session-batched
+"""GG20 {t,n}-threshold ECDSA with identifiable aborts, session-batched
 (port of tpu_mpc/protocols/gg20/batch.py: keygen, key refresh and update,
-and signing).
+signing with its fault-injection seams, and the encrypted share backup).
 
   keygen   4 rounds: ring-Pedersen setup (h1, h2, N_tilde), correct-key
            proof, composite-dlog proofs both directions, Paillier bit-length
@@ -10,10 +10,17 @@ and signing).
   online   1 round: s_i broadcast
 
 Per-check boolean masks fold onto the culpable party like the reference's
-ErrorType { error_type, bad_actors }.  keygen draws from SessionRng in the
-reference's order and its primes are the reference's (host/primes.py), so a
-pinned seed gives the reference's keys value for value.  Blame, the signing
-fault-injection seams and the encrypted backup wait for a later slice.
+ErrorType { error_type, bad_actors }; blame.py replays the revealed state
+of an aborted session to name the cheater.  keygen draws from SessionRng in
+the reference's order and its primes are the reference's (host/primes.py),
+so a pinned seed gives the reference's keys value for value.
+
+Fault injection (gg_2020/test.rs's corruption scenarios): offline_stage's
+corrupt={"step": 5 | 6 | "decommit", "parties": spec} doubles delta_i,
+sigma_i or the committed g_gamma of the listed parties; sign_online's
+{"step": 7, ...} doubles s_i.  spec is a flat list of signer slots (every
+session) or one list per session (the sessions axis as the scenario axis;
+[] is an honest session).
 
 Serving: tile_key serves one key set over S sessions; repeat_key serves G
 key sets (take_key_sets of a keygen batch) over S sessions interleaved,
@@ -61,7 +68,7 @@ from ...zk.paillier_zk import (
 )
 from ...zk.pdl_slack import PDLwSlackStatementBatch, pdl_slack_prove
 from ...zk.range_proofs import DlogStatementBatch, PaillierCtxBatch, alice_prove
-from ..gg18.batch import _dk_take, _sc, gen_paillier_batch
+from ..gg18.batch import _dk_take, _finish_signatures, _sc, gen_paillier_batch
 
 Q = hec.N
 SECURITY = 256
@@ -243,6 +250,16 @@ def update_private_key(key: LocalKeyBatch20, factor_u, factor_x) -> LocalKeyBatc
     y_i_new = dec.mul_generator(_sc(u_new, key.device))
     return dataclasses.replace(key, u=u_new, x=x_new, y_i=y_i_new,
                                y=dec.point_sum(y_i_new, axis=1))
+
+
+def to_encrypted_segments(key: LocalKeyBatch20, segment_size: int, num_segments: int, pub_y,
+                          rng: SessionRng):
+    """Verifiable backup of every u_i share (party_i.rs:503-511): the same
+    segmentation as GG18's (host/backup.py) -> (witnesses, encrypted
+    segment lists), flattened [S * n] row-major."""
+    from ...host import backup
+
+    return backup.backup_batch(key.u, segment_size, num_segments, pub_y, rng)
 
 
 def _ints(v) -> np.ndarray:
@@ -427,8 +444,40 @@ class OfflineState:
                     self.miu, self.ni, self.l_i)
 
 
-def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -> OfflineState:
-    """Rounds 0-6 of GG20 signing (message-independent offline phase)."""
+def _corrupt_slots(parties, S: int):
+    """Yield (session index or slice, party slot) pairs of a corrupt spec:
+    a flat list = the same slots in every session; a list of lists = one
+    list per session."""
+    if parties and isinstance(parties[0], (list, tuple)):
+        for b, ps in enumerate(parties):
+            for pi in ps:
+                yield b, pi
+    else:
+        for pi in parties:
+            yield slice(None), pi
+
+
+def _double_mod_q(arr, b, pi):
+    """arr[b, pi] := 2 arr[b, pi] mod Q in an object array: a single cell
+    comes back as a bare python int (np.mod on it overflows C long)."""
+    v = arr[b, pi]
+    if isinstance(v, np.ndarray):
+        arr[b, pi] = np.mod(v * 2, Q)
+    else:
+        arr[b, pi] = (int(v) * 2) % Q
+
+
+def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng,
+                  corrupt: dict | None = None) -> OfflineState:
+    """Rounds 0-6 of GG20 signing (message-independent offline phase).
+
+    corrupt: optional fault injection (module docstring).  Step 5 doubles
+    delta_i, step 6 sigma_i (gg_2020/test.rs:459-465); "decommit" makes a
+    party commit and decommit consistently to a fake g_gamma = 2 gamma G
+    while its MtA uses the true gamma, so that only phase-5 blame's
+    decommit re-check names it.  The reference's decommit seam takes a flat
+    list only (it indexes every session); the port takes per-session lists
+    there too."""
     S = key.S
     tp = len(s_parties)
     dev = key.device
@@ -444,10 +493,18 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
     k = rng.scalars((S, tp))
     gamma = rng.scalars((S, tp))
     g_gamma = dec.mul_generator(sc(gamma))
+    step = corrupt.get("step") if corrupt else None
+    if step == "decommit":
+        fake = gamma.copy()
+        for b, pi in _corrupt_slots(corrupt["parties"], S):
+            _double_mod_q(fake, b, pi)
+        g_gamma_dec = dec.mul_generator(sc(fake))
+    else:
+        g_gamma_dec = g_gamma
 
     blind1 = rng.bits(SECURITY, (S, tp))
-    gg_ints = point_hash_ints(g_gamma)
-    com1 = commit_rows(gg_ints, blind1)
+    gg_dec_ints = point_hash_ints(g_gamma_dec)
+    com1 = commit_rows(gg_dec_ints, blind1)
 
     ek_s = key.ek.take(s_parties, 1)
     stmt_s = key.dlog_stmt.take(s_parties, 1)         # [S, tp]
@@ -502,6 +559,9 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
     kw = np.mod(k * w, Q)
     delta_i = np.mod(kg + np.sum(alpha, axis=2) + np.sum(beta_g[:, iinv, kidx], axis=2), Q)
     sigma_i = np.mod(kw + np.sum(miu, axis=2) + np.sum(beta_w[:, iinv, kidx], axis=2), Q)
+    if step in (5, 6):
+        for b, pi in _corrupt_slots(corrupt["parties"], S):
+            _double_mod_q(delta_i if step == 5 else sigma_i, b, pi)
 
     # phase 3: T_i = sigma_i G + l_i H2 + Pedersen proof
     l_i = rng.scalars((S, tp))
@@ -512,10 +572,10 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
     # phase 3-4: delta reconstruction, decommit gamma, R
     delta = np.mod(np.sum(delta_i, axis=1), Q)
     delta_inv = np.asarray([pow(int(d), -1, Q) if int(d) else 0 for d in delta], dtype=object)
-    com_ok = commit_rows(gg_ints, blind1) == com1
-    gg_peers = dec.point_take(g_gamma, peers, 1)
+    com_ok = commit_rows(gg_dec_ints, blind1) == com1
+    gg_peers = dec.point_take(g_gamma_dec, peers, 1)
     pk_ok = to_numpy(dec.point_eq(msg_b_gamma.b_proof.pk, gg_peers))[:, iinv, kidx].all(axis=2)
-    gamma_sum = dec.point_sum(g_gamma, axis=1)
+    gamma_sum = dec.point_sum(g_gamma_dec, axis=1)
     R = dec.scalar_mul(sc(delta_inv), gamma_sum)
     r_x = np.asarray(batch_from_limbs(dec.x_coord_mod_q(R)), dtype=object)
 
@@ -572,7 +632,7 @@ def offline_stage(key: LocalKeyBatch20, s_parties: list[int], rng: SessionRng) -
         msg_b_gamma_c=dense(msg_b_gamma.c, 0),
         R_bar=R_bar, S_i=S_i, T_i=T_i, l_i=l_i,
         m_b_w_c=dense(msg_b_w.c, 1), miu=dense(miu_raw, 0), ni=dense(beta_w, 0),
-        debug_masks=debug_masks, g_gamma_decommit=g_gamma,
+        debug_masks=debug_masks, g_gamma_decommit=g_gamma_dec,
     )
 
 
@@ -586,30 +646,17 @@ class SignResult20:
     s_i: np.ndarray = None  # [S, tp] partial sigs
 
 
-def sign_online(off: OfflineState, m_int) -> SignResult20:
+def sign_online(off: OfflineState, m_int, corrupt: dict | None = None) -> SignResult20:
     """Phase 7: one-round online signing.  Every signature is checked with
-    the pure-python ECDSA verifier (host/ec.py:ecdsa_verify)."""
+    the pure-python ECDSA verifier (host/ec.py:ecdsa_verify).
+    corrupt={"step": 7, "parties": spec} doubles those parties' s_i."""
     S = off.k.shape[0]
     m_arr = np.broadcast_to(np.asarray(m_int, dtype=object), (S,))
     s_i = np.mod(np.mod(m_arr, Q)[:, None] * off.k + off.r_x[:, None] * off.sigma_i, Q)
-    s_sum = np.mod(np.sum(s_i, axis=1), Q)
-    _, ry_l, _ = dec.to_affine(off.R)
-    ry = np.asarray(batch_from_limbs(ry_l), dtype=object)
-    recid = np.empty(S, dtype=object)
-    s_final = np.empty(S, dtype=object)
-    for b in range(S):
-        sv = int(s_sum[b])
-        rec = (int(ry[b]) % Q) & 1
-        if sv > Q - sv:
-            sv = Q - sv
-            rec ^= 1
-        s_final[b] = sv
-        recid[b] = rec
-    y_host = dec.points_to_host(off.y)
-    sig_valid = np.asarray([
-        y_host[b] is not None
-        and hec.ecdsa_verify(y_host[b], int(m_arr[b]) % Q, int(off.r_x[b]), int(s_final[b]))
-        for b in range(S)
-    ])
+    if corrupt and corrupt.get("step") == 7:
+        for b, pi in _corrupt_slots(corrupt["parties"], S):
+            _double_mod_q(s_i, b, pi)
+    s_final, recid, sig_valid = _finish_signatures(off.R, np.mod(np.sum(s_i, axis=1), Q),
+                                                   off.r_x, off.y, m_arr)
     ok = off.ok & sig_valid
     return SignResult20(r=off.r_x, s=s_final, recid=recid, ok=ok, sig_valid=sig_valid, s_i=s_i)

@@ -1,5 +1,11 @@
-"""Batched EC sigma protocols, Fiat-Shamir (port of tpu_mpc/zk/sigma.py;
-the DLog, HomoElGamal and Pedersen proofs of the signing path).
+"""Batched EC sigma protocols, Fiat-Shamir (port of tpu_mpc/zk/sigma.py:
+the DLog, HomoElGamal, Pedersen and ECDDH proofs).
+
+  DLogProof        PoK of x: Q = x G
+  HomoElGamalProof PoK of (x, r): D = x H + r Y and E = r G
+  PedersenProof    PoK of (m, r): T = m G + r H2, H2 = base_point2
+  ECDDHProof       PoK of x: h1 = x g1 and h2 = x g2 (Chaum-Pedersen; GG20
+                   phase-6 blame, gg_2020/blame.rs:258-271)
 
 Challenge convention: e = SHA256(compressed points chained) mod q;
 responses z = nonce + e * witness mod q.  Nonces come from the caller's
@@ -130,3 +136,38 @@ def pedersen_verify(proof: PedersenProof) -> np.ndarray:
     lhs = ec.point_add(ec.mul_generator(proof.z1), ec.mul_base_point2(proof.z2))
     rhs = ec.point_add(proof.A, ec.scalar_mul(e, proof.T))
     return to_numpy(ec.point_eq(lhs, rhs))
+
+
+@dataclasses.dataclass
+class ECDDHProof:
+    """PoK of x: h1 = x g1, h2 = x g2 (Chaum-Pedersen DDH tuple)."""
+
+    a1: ec.Point
+    a2: ec.Point
+    z: Any
+
+
+def _ecddh_challenge(g1, h1, g2, h2, a1, a2):
+    return digest_rows(*point_hash_ints_many(g1, h1, g2, h2, a1, a2), reduce_mod=Q)
+
+
+def ecddh_prove(x_limbs, g1, g2, rng) -> ECDDHProof:
+    dev = x_limbs.device
+    shape = tuple(x_limbs.shape[:-1])
+    s = _sc(rng.scalars(shape), dev)
+    a1 = ec.scalar_mul(s, g1)
+    a2 = ec.scalar_mul(s, g2)
+    h1 = ec.scalar_mul(x_limbs, g1)
+    h2 = ec.scalar_mul(x_limbs, g2)
+    e = _sc(_ecddh_challenge(g1, h1, g2, h2, a1, a2), dev)
+    z = ec.sc_add(s, ec.sc_mul(e, x_limbs))
+    return ECDDHProof(a1=a1, a2=a2, z=z)
+
+
+def ecddh_verify(proof: ECDDHProof, g1, h1, g2, h2) -> np.ndarray:
+    e = _sc(_ecddh_challenge(g1, h1, g2, h2, proof.a1, proof.a2), proof.z.device)
+    lhs1 = ec.scalar_mul(proof.z, g1)
+    rhs1 = ec.point_add(proof.a1, ec.scalar_mul(e, h1))
+    lhs2 = ec.scalar_mul(proof.z, g2)
+    rhs2 = ec.point_add(proof.a2, ec.scalar_mul(e, h2))
+    return to_numpy(ec.point_eq(lhs1, rhs1) & ec.point_eq(lhs2, rhs2))
