@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
              lane inside a tile, K2 with three key groups in every tile,
              and K1 at 4096 bits, whose tensor-core planes partly stream
              from L2 (also at 512 lanes with 256-bit exponents, blame's
-             shape).  K3 (ns = 2 and 4, an infinity base and k = 0) and
+             shape, and the two-party shapes: 5120 lanes with 2048-bit
+             exponents, range_proof_ni's stacked encryptions, more than one
+             wave of blocks; 64 lanes with 256-bit exponents, Lindell'17
+             sign's c_key^v).  K3 (ns = 2 and 4, an infinity base and k = 0) and
              K4 (bases G and BASE_POINT2, digits 0 and 255 in every lane)
              at lane counts 1, 7, 9, 33, 257; K3 timed at 128, 256 and 512
              lanes, K4 at 256 and 512 for both bases; K5 (lanes with Z = 0
@@ -70,12 +73,26 @@ Phases (any failure exits non-zero and prints no result line):
              signer subsets [0, 1], [1, 2], [0, 2] (one warm-up pass with the
              holds, then one timed pass each): every signature verifies with
              low s; prints the prime-search seconds and sig/s.
+  8. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
+             Paillier and N~, each session its own key (no tables, no K2):
+             keygen (every ok, y = (x1 x2) G), sign of MSG_2P (a warm-up
+             pass with the holds, a timed pass; every signature verifies
+             with low s), the MtA conversion (alpha + beta = x1 x2),
+             refresh (pubkey unchanged) and sign again, the interactive PDL
+             with its range proof (honest sessions accept, x = q - 5 is
+             rejected); every launch shape held against its plain version;
+             prints keygen's prime search, kernel and other seconds, sig/s,
+             the refresh and PDL seconds, and per kernel ms and launches;
+  9. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
+             MSG_2P, host only: valid, low s, no kernel launched; prints
+             the host seconds.
 Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
 launches_multitenant: the first timed multi-tenant pass; launches_blame:
-the blame phase; launches_gg18: the timed GG18 [0, 1] pass), the card's
-name and power limit, and last {"ok": true, "device": {...}}.  It imports
-nothing of jax or of the reference package tpu_mpc.
+the blame phase; launches_gg18: the timed GG18 [0, 1] pass;
+launches_lindell17: the lindell17 phase), the card's name and power limit,
+and last {"ok": true, "device": {...}}.  It imports nothing of jax or of
+the reference package tpu_mpc.
 """
 
 from __future__ import annotations
@@ -97,6 +114,8 @@ K4_TIMED = (256, 512)                # the lane counts of K4 on the main path
 K5_TIMED = (256, 512)                # K5 timed here (the main path runs 128 to 1792)
 K2_LANES = 256                       # S*tp*(tp-1)
 K1_BLAME_LANES = 512                 # S*tp*tp: phase-5 blame's c_A^gamma mod N^2
+K1_RANGE_NI_LANES = 64 * 2 * 40      # Lindell'17 at S = 64: range_proof_ni's r^N over [S, 2 x REPS]
+K1_L17_LANES = 64                    # Lindell'17 sign's c_key^v mod N^2
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
 # H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
 # arithmetic is 32x32-bit integer multiply-adds (IMAD, one each, widening or
@@ -212,7 +231,8 @@ def check_k1(dev, rnd):
     one modulus for all lanes or one per lane, decode columns or residues for
     the axis-0 fold; exact against exp_plain, samples against python pow.
     Then ragged lane counts (1, L - 1, L + 1, 513) with one modulus per lane
-    inside every tile.  Times both widths."""
+    inside every tile.  Times both widths, then the later phases' 4096-bit
+    shapes (_k1_shape): blame's, and Lindell'17's at 5120 and 64 lanes."""
     import numpy as np
     import torch
 
@@ -307,40 +327,68 @@ def check_k1(dev, rnd):
             require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(ns[i])),
                     f"K1 ragged B={B} lane {i} != python pow")
         log(f"K1 2048b ragged lanes={B} (tile {L}), one modulus per lane: exact")
-    # the shape GG20 blame adds: c_A^gamma mod N^2 over [S, tp, tp] = 512
-    # lanes at S = 128, 4096-bit moduli, 256-bit exponents; one modulus per lane
-    bits, B = 4096, K1_BLAME_LANES
+    # the shapes of the later phases, 4096-bit moduli (N^2): GG20 blame's
+    # c_A^gamma over [S, tp, tp] = 512 lanes at S = 128 with 256-bit
+    # exponents, one modulus per lane; Lindell'17 at S = 64 (each session's
+    # modulus over consecutive lanes, as a trailing axis lays them out): the
+    # range proof's stacked encryptions r^N over [S, 2 x 40] = 5120 lanes
+    # with 2048-bit exponents (more than one wave of blocks), and sign's
+    # c_key^v over 64 lanes with 256-bit exponents
+    for suffix, B, ebits, per_mod, emits, what in (
+            ("_4096_e256", K1_BLAME_LANES, 256, 1, (True, False), "the blame shape"),
+            ("_4096_l5120", K1_RANGE_NI_LANES, 2048, 2 * 40, (True,),
+             "range_proof_ni's stacked encryptions"),
+            ("_4096_e256_l64", K1_L17_LANES, 256, 1, (True,), "Lindell'17 sign's c_key^v")):
+        row, err = _k1_shape(dev, rnd, 4096, B, ebits, per_mod, emits, what)
+        worst = max(worst, err)
+        entry.update({k + suffix: v for k, v in row.items()})
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def _k1_shape(dev, rnd, bits, B, ebits, per_mod, emits, what):
+    """K1 at B lanes of `bits`-bit moduli, B // per_mod distinct moduli, each
+    on per_mod consecutive lanes, with `ebits`-bit exponents (lane 0's is 0):
+    exact against exp_plain in each emit mode of `emits` and against python
+    pow on sampled lanes, then timed.  -> (ms, plain_ms, bound_ms,
+    imad_bound_ms as a dict, largest |diff|)."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
     par = RnsParams(bits)
-    ns = np.asarray(_odd_moduli(rnd, bits, B, par), dtype=object)
-    base = np.asarray([rnd.getrandbits(bits) % int(v) for v in ns], dtype=object)
-    expo = np.asarray([rnd.getrandbits(256) for _ in range(B)], dtype=object)
+    ns = np.asarray(_odd_moduli(rnd, bits, B // per_mod, par), dtype=object)
+    n_l = np.repeat(ns, per_mod)
+    base = np.asarray([rnd.getrandbits(bits) % int(v) for v in n_l], dtype=object)
+    expo = np.asarray([rnd.getrandbits(ebits) for _ in range(B)], dtype=object)
     expo[0] = 0
     x = torch.as_tensor(batch_to_limbs(base, par.Lin), device=dev)
-    e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(256))), device=dev)
-    rows = RnsCtx.from_ints(ns, bits, dev).rows
-    for emit in (True, False):
+    e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(ebits))), device=dev)
+    rows = RnsCtx.from_ints(ns, bits, dev).rows.repeat_interleave(per_mod, 0).contiguous()
+    worst = 0
+    for emit in emits:
         out_k = pr.exp_call(x, e, rows, bits, emit_planes=emit)
         out_p = pr.exp_plain(x, e, rows, bits, emit_planes=emit)
         torch.cuda.synchronize()
         err = _maxerr(out_k, out_p)
         worst = max(worst, err)
         require(err == 0 and out_k.shape == out_p.shape,
-                f"K1 {bits}b lanes={B} 256-bit exponents emit={emit}: kernel != plain "
+                f"K1 {bits}b lanes={B} {ebits}-bit exponents emit={emit}: kernel != plain "
                 f"(max |diff| {err})")
-    got = RnsLazy((pr.exp_call(x, e, rows, bits),), (B,), ns, par.MA).ints()
-    for i in (0, 1, 7, 8, 255, 256, 510, 511):
-        require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(ns[i])),
-                f"K1 {bits}b lanes={B} 256-bit exponents: lane {i} != python pow")
+    got = RnsLazy((pr.exp_call(x, e, rows, bits),), (B,), n_l, par.MA).ints()
+    for i in sorted({i for i in (0, 1, 7, 8, B // 2 - 1, B // 2, B - 2, B - 1) if 0 <= i < B}):
+        require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(n_l[i])),
+                f"K1 {bits}b lanes={B} {ebits}-bit exponents: lane {i} != python pow")
     ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, True), 3)
     pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, True), 1)
     bms, bby, ims = _k1_bound(par, B, e.shape[1], x, e, rows, dev)
-    entry.update(ms_4096_e256=ms, plain_ms_4096_e256=pms, bound_ms_4096_e256=bms,
-                 imad_bound_ms_4096_e256=ims)
-    log(f"K1 {bits}b lanes={B} (one modulus per lane) 256-bit exponents, the blame shape: exact "
+    log(f"K1 {bits}b lanes={B} ({B // per_mod} moduli) {ebits}-bit exponents, {what}: exact "
         f"against plain and python pow; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound "
         f"{bms:.4f} ms ({bby}), IMAD bound {ims:.4f} ms")
-    entry["max_abs_err"] = worst
-    return entry
+    return dict(ms=ms, plain_ms=pms, bound_ms=bms, imad_bound_ms=ims), worst
 
 
 def _odd_moduli(rnd, bits, n, par):
@@ -1373,6 +1421,170 @@ def run_gg18(dev, key, held: set):
     return first
 
 
+# --------------------------------------------------------------------------
+# phases 8 and 9: the two-party protocols
+# --------------------------------------------------------------------------
+
+L17_S, L17_SEED = 64, 0x2017        # sessions, each with its own Paillier key and N~
+# the two-party bench message (benches/run_benches.py:47)
+MSG_2P = 0x31F7A65E315586AC198BD798B6629CE1B4C4E5AB37292BFA94B22C3B6A953E9B
+CCLST_S, CCLST_SEED, CCLST_DISC_BITS = 1, 0xCC19, 1348
+
+
+def run_lindell17(dev, held: set):
+    """Lindell'17 two-party ECDSA on the card at S = 64 sessions, 2048-bit
+    Paillier and N~, every session its own key (no tables: K2 is never
+    launched), one rng chain from SessionRng(0x2017): keygen (every ok, y =
+    (x1 x2 mod q) G on the host); sign of MSG_2P, a warm-up pass then a
+    timed one (every signature verifies under the host oracle with low s,
+    every ok); the Lindell -> GG18 MtA conversion (alpha + beta = x1 x2 mod
+    q); refresh_private_key with random factors (the pubkey unchanged), then
+    sign again; the interactive PDL under the keygen's Paillier keys, on
+    fresh x < q/3 (every session accepts) and on x = q - 5 (every session's
+    range proof rejects).  Every K1-K5 launch shape is held against its plain
+    version on its first call.  Kernel counts are set to 0 just before the
+    phase and read just after; K1, K3, K4, K5 must launch and K2 must not."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.mta.mta import paillier_encrypt_ints
+    from tpu_mpc_torch.protocols.lindell17 import batch as l17
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.zk import pdl
+
+    S, N = L17_S, hec.N
+    rng = SessionRng(L17_SEED)
+    secs = {}
+
+    def timed(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[name] = round(secs.get(name, 0.0) + time.perf_counter() - t, 3)
+        return out
+
+    def check_sign(name, sig):
+        # sig_valid: every signature checked by the pure-python ECDSA verifier
+        require(bool(np.asarray(sig.ok).all()) and bool(np.asarray(sig.sig_valid).all()),
+                f"lindell17 {name}: a check or a signature failed")
+        require(all(int(v) <= N // 2 for v in sig.s), f"lindell17 {name}: a high s")
+
+    def pdl_round(tag, x):
+        ek, dk = kg.p1.ek, kg.p1.dk
+        r = rng.units_below(ek.n, (S,))
+        c = paillier_encrypt_ints(ek, x, r)
+        stmt = pdl.PDLStatementBatch(ciphertext=c, ek=ek, Q_pt=ec.mul_generator(
+            ec.sc_from_ints(np.mod(x, N), dev)))
+        wit = pdl.PDLWitnessBatch(x=x, r=r, dk=dk)
+        v1, vs = timed(f"pdl[{tag}] verifier", pdl.verifier_message1, stmt, rng)
+        p1, ps = timed(f"pdl[{tag}] prover", pdl.prover_message1, wit, stmt, v1, rng)
+        v2, range_ok = timed(f"pdl[{tag}] verifier", pdl.verifier_message2, p1, stmt, vs)
+        p2, prover_ok = timed(f"pdl[{tag}] prover", pdl.prover_message2, v1, v2, wit, ps)
+        final = timed(f"pdl[{tag}] verifier", pdl.verifier_finalize, p1, p2, vs)
+        return range_ok, prover_ok, final
+
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+        with _Timed(l17, "gen_paillier_batch") as primes_t:
+            kg = timed("keygen", l17.keygen, S, rng, PAILLIER_BITS, device=dev)
+        kg_dev_s = sum(v for k, v in inst.busy().items() if not k.startswith("K1 ")) / 1e3
+        require(bool(np.asarray(kg.ok).all()), f"lindell17 keygen: ok {kg.ok.tolist()}")
+        y = ec.points_to_host_list(kg.p1.pubkey)
+        for b in range(S):
+            require(y[b] == hec.mul(int(kg.p1.x1[b]) * int(kg.p2.x2[b]) % N),
+                    f"lindell17 keygen: y != (x1 x2) G in session {b}")
+        check_sign("sign[warm-up]", timed("sign[warm-up]", l17.sign, kg, MSG_2P, rng))
+        holds = len(inst.new_holds)
+        check_sign("sign", timed("sign", l17.sign, kg, MSG_2P, rng))
+        require(len(inst.new_holds) == holds, "lindell17 sign: the timed pass launched a shape "
+                f"the warm-up did not: {inst.new_holds[holds:]}")
+        msg_b, beta = timed("mta", l17.party_two_to_mta_message_b, kg.p2, rng)
+        alpha, ok = timed("mta", l17.party_one_to_mta_message_b, kg.p1, msg_b)
+        require(bool(np.asarray(ok).all()), "lindell17 mta: a check failed")
+        for b in range(S):
+            require((int(alpha[b]) + int(beta[b])) % N
+                    == int(kg.p1.x1[b]) * int(kg.p2.x2[b]) % N,
+                    f"lindell17 mta: alpha + beta != x1 x2 in session {b}")
+        with _Timed(l17, "gen_paillier_batch") as primes_r:
+            kg2 = timed("refresh", l17.refresh_private_key, kg, rng.scalars((S,)), rng)
+        require(bool(np.asarray(kg2.ok).all())
+                and ec.points_to_host_list(kg2.p1.pubkey) == y,
+                "lindell17 refresh: the pubkey changed")
+        check_sign("sign[refreshed]", timed("sign[refreshed]", l17.sign, kg2, MSG_2P, rng))
+        range_ok, prover_ok, final = pdl_round("honest", rng.below(N // 3, (S,)))
+        require(bool((range_ok & prover_ok & final).all()),
+                f"lindell17 pdl: an honest session rejected: range {range_ok.tolist()}, "
+                f"prover {prover_ok.tolist()}, final {final.tolist()}")
+        range_ok, prover_ok, final = pdl_round("x = q - 5", np.asarray([N - 5] * S, dtype=object))
+        require(not bool(range_ok.any()),
+                f"lindell17 pdl: x = q - 5 passed the range proof: {range_ok.tolist()}")
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in ("K1", "K3", "K4", "K5") if launches[k] == 0]
+    require(not missing and launches["K2"] == 0,
+            f"lindell17: K1, K3, K4, K5 must launch and K2 must not: {launches}")
+    log(f"lindell17 keygen S={S} (seed {L17_SEED:#x}, {PAILLIER_BITS}-bit Paillier and N~): ok "
+        f"all true, y = (x1 x2) G in every session; wall {secs['keygen']:.2f} s (the plain "
+        f"holds included), host prime search {primes_t.secs:.2f} s ({4 * S} primes of "
+        f"{PAILLIER_BITS // 2} bits), kernel device time {kg_dev_s:.3f} s, the rest (host "
+        f"work and the plain holds) {secs['keygen'] - primes_t.secs - kg_dev_s:.2f} s")
+    log(f"lindell17 sign S={S}: warm-up pass {secs['sign[warm-up]']:.2f} s (holds), timed pass "
+        f"{secs['sign']:.2f} s, {S / secs['sign']:.2f} sig/s; every signature verifies with low "
+        f"s, ok all true; after refresh {secs['sign[refreshed]']:.2f} s")
+    log(f"lindell17 mta: alpha + beta = x1 x2 in every session, {secs['mta']:.2f} s; refresh "
+        f"wall {secs['refresh']:.2f} s (host prime search {primes_r.secs:.2f} s, {2 * S} primes), "
+        f"pubkey unchanged")
+    log(f"lindell17 pdl: honest sessions all accept (prover {secs['pdl[honest] prover']:.2f} s, "
+        f"verifier {secs['pdl[honest] verifier']:.2f} s, the first launch of each shape held "
+        f"against plain); x = q - 5: every range proof rejects (prover "
+        f"{secs['pdl[x = q - 5] prover']:.2f} s, verifier {secs['pdl[x = q - 5] verifier']:.2f} s)")
+    log(f"lindell17: seconds {json.dumps(secs)}; the phase {time.perf_counter() - t_phase:.1f} s "
+        f"with its checks and holds")
+    log("lindell17: " + _kernel_summary(inst, launches))
+    log(f"lindell17: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; held "
+        f"against plain in this phase: {', '.join(inst.new_holds)}")
+    return launches
+
+
+def run_cclst19():
+    """CCLST'19 (HSM-CL over class groups), host-only as in the reference:
+    keygen(1) at the production discriminant of 1348 bits under
+    SessionRng(0xCC19), then sign of MSG_2P on the same rng.  Every session
+    ok, the signature valid under the host oracle with low s; no kernel is
+    launched (counts set to 0 just before the phase and read just after)."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.host import class_group as cg
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.protocols.cclst19 import batch as cclst
+    from tpu_mpc_torch.utils.rng import SessionRng
+
+    rng = SessionRng(CCLST_SEED)
+    kernels.reset_launches()
+    with _Timed(cg.CLGroup, "from_seed") as setup:
+        t = time.perf_counter()
+        sessions = cclst.keygen(CCLST_S, rng, disc_bits=CCLST_DISC_BITS)
+        kg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sigs = cclst.sign(sessions, MSG_2P, rng)
+    sign_s = time.perf_counter() - t
+    require(all(s.ok for s in sessions), "cclst19 keygen: a check failed")
+    for sess, sig in zip(sessions, sigs):
+        require(sig.valid and sig.s <= hec.N // 2
+                and hec.ecdsa_verify(sess.pubkey, MSG_2P % hec.N, sig.r, sig.s),
+                "cclst19 sign: a signature is invalid or has a high s")
+    launches = dict(kernels.LAUNCHES)
+    require(not any(launches.values()), f"cclst19: the host-only path launched {launches}")
+    log(f"cclst19 S={CCLST_S} (seed {CCLST_SEED:#x}, {CCLST_DISC_BITS}-bit discriminant): "
+        f"keygen ok, signature valid with low s, no kernel launched; host seconds: keygen "
+        f"{kg_s:.2f} (of which the CL group setup {setup.secs:.2f}), sign {sign_s:.2f}")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1425,6 +1637,8 @@ def main() -> int:
     held = set()
     blame_launches = run_blame(dev, key128, held)
     gg18_launches = run_gg18(dev, key128, held)
+    l17_launches = run_lindell17(dev, held)
+    run_cclst19()
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -1444,6 +1658,7 @@ def main() -> int:
             "replaces": src[name][1], "launches": launches[name],
             "launches_keygen": kg_launches[name], "launches_multitenant": mt_launches[name],
             "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
+            "launches_lindell17": l17_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,

@@ -1,13 +1,30 @@
 #!/usr/bin/env python3
-"""Write the reference package's GG20 blame and GG18 outputs as golden files
-for the port's CPU tests (tests/gpu/test_torch_blame.py, test_torch_gg18.py).
+"""Write the reference package's GG20 slice and blame, GG18, Lindell'17 and
+PDL outputs as golden files for the port's CPU tests
+(tests/gpu/test_torch_gg20.py, test_torch_blame.py, test_torch_gg18.py,
+test_torch_lindell17.py, test_torch_pdl.py).
 
-    JAX_PLATFORMS=cpu TPU_MPC_PALLAS=0 python tests/gpu/make_torch_goldens.py
+    JAX_PLATFORMS=cpu TPU_MPC_PALLAS=0 python tests/gpu/make_torch_goldens.py [name ...]
 
-(from the repository root; 299 s wall on an 8-core CPU machine, most of it
-JAX compilation).  pytest does not collect this file.  The tests run
-only the port against what it writes, so that no tier-1 test pays for the
-reference's offline_stage, sign or keygen.
+(from the repository root; names: gg20_blame_768, gg18_768, lindell17_1024,
+pdl_576, gg20_slice_768, default all; on an 8-core CPU machine 299 s wall
+for the first two, 100 s for lindell17_1024, 29 s for pdl_576 and 139 s
+for gg20_slice_768, most of it JAX compilation and the reference's keygen).
+pytest does not collect this file.  The tests run only the port against
+what it writes, so that no tier-1 test pays for the reference's
+offline_stage, sign or keygen.  The Lindell'17 and PDL files are written
+with the randomizer tables off (TPU_MPC_ENC_TABLES=0; their keys have no
+tables either way).
+
+tests/gpu/fixtures/gg20_slice_768.json: session 0 of
+tests/fixtures/gg20key_20_2_1_3_768.json tiled to S = 2, signers [0, 1],
+offline_stage from SessionRng(0x5169) and sign_online of
+m = sha256(b"gg20 message"), with the cross-session batch verification
+forced (TPU_MPC_BATCH_VERIFY=1), in two configurations: "uniform"
+(TPU_MPC_ENC_TABLES=0) and "tables" (TPU_MPC_ENC_TABLES=1), the randomizer
+tables built on the key in both.  Per configuration: r, s, recid,
+sig_valid and the offline transcript's r_x, k, sigma_i, delta_i, msg_a_c,
+alpha, beta_g, miu; in "tables" also the resolved k and beta randomizers.
 
 tests/gpu/fixtures/gg20_blame_768.json: session 0 of
 tests/fixtures/gg20key_20_2_1_3_768.json tiled to S = 4, signers [0, 1], in
@@ -33,6 +50,24 @@ same rng gg18.sign of m = sha256(b"hello") for the subsets [0, 1], [1, 2],
 [0, 2] (r, s, recid, ok, sig_valid), and a zero-sum refresh_private_key
 followed by update_private_key with the Feldman re-dealt x factors (the new
 p, q, u, x and y).
+
+tests/gpu/fixtures/lindell17_1024.json: one rng chain from SessionRng(0x17)
+(the seed of tests/test_lindell17.py:18), 1024-bit Paillier, S = 2:
+lindell17.keygen(2, rng, 1024) (x1, x2, p, q, Q1, Q2, c_key,
+c_key_randomness, pubkey, ok); sign of m = sha256(b"lindell msg") (r, s,
+recid, ok, sig_valid); the MtA conversion party_two_to_mta_message_b /
+party_one_to_mta_message_b (alpha, beta, ok); refresh_private_key with
+factors rng.scalars((2,)) (the new key's fields) and sign of 424242.  The
+state of rng's random.Random before each step after keygen
+(rng_before_*, getstate() as lists), so that a test can run a step from
+the golden key alone.
+
+tests/gpu/fixtures/pdl_576.json: the runs of tests/test_pdl.py (BITS =
+576, S = 2, keys host/paillier.keypair(576) drawn from each seed's rng):
+range_proof_ni prove/verify on x < q/3 (seed 5) and on x = q - 5 (seed 6,
+the soundness case: verify rejects), the zk_pdl flow (seed 7: every
+message and state field, range_ok, prover_ok, the verifier's verdict) and
+the flow with Q = (x + 1) G (seed 8: the verdict rejects).
 """
 
 from __future__ import annotations
@@ -54,12 +89,21 @@ S_BLAME = 4
 SIGNERS = [0, 1]
 PATTERNS4 = [[], [0], [1], [0, 1]]
 SEEDS = {"step5": 0xB105, "step6": 0xB106, "decommit": 0xB1DC, "clean": 0xB1C1}
+S_SLICE = 2
+SLICE_SEED = 0x5169
+SLICE_FIELDS = ("r_x", "k", "sigma_i", "delta_i", "msg_a_c", "alpha", "beta_g", "miu")
 DECOMMIT_PARTIES = [1]
 M_BLAME = int.from_bytes(hashlib.sha256(b"gg20 blame").digest(), "big")
 
 GG18_SEED, GG18_S, GG18_BITS = 0xAA, 2, 768
 GG18_SUBSETS = ([0, 1], [1, 2], [0, 2])
 M_GG18 = int.from_bytes(hashlib.sha256(b"hello").digest(), "big")
+
+L17_SEED, L17_S, L17_BITS = 0x17, 2, 1024
+M_L17 = int.from_bytes(hashlib.sha256(b"lindell msg").digest(), "big")
+M_L17_REFRESH = 424242
+PDL_BITS, PDL_S = 576, 2
+PDL_SEEDS = {"roundtrip": 5, "soundness": 6, "flow": 7, "wrong_witness": 8}
 
 
 def matrix4(S: int) -> list:
@@ -161,6 +205,45 @@ def gg20_blame() -> dict:
             "signers": SIGNERS, "runs": runs}
 
 
+def gg20_slice() -> dict:
+    import numpy as np
+    from tpu_mpc.protocols.gg20 import batch as jg
+    from tpu_mpc.utils.rng import SessionRng
+
+    with open(KEY_FIXTURE) as f:
+        d = json.load(f)
+    key = {k: ([v[0]] * S_SLICE if isinstance(v, list) else v) for k, v in d.items()}
+    key["S"] = S_SLICE
+    m = int.from_bytes(hashlib.sha256(b"gg20 message").digest(), "big")
+    out = {"seed": SLICE_SEED, "S": S_SLICE, "signers": SIGNERS, "m": str(m)}
+    batch_verify = os.environ.get("TPU_MPC_BATCH_VERIFY")
+    os.environ["TPU_MPC_BATCH_VERIFY"] = "1"
+    try:
+        for name, flag in (("uniform", "0"), ("tables", "1")):
+            os.environ["TPU_MPC_ENC_TABLES"] = flag
+            t = time.perf_counter()
+            jkey = _keycache()._decode(key)
+            # the reference's keygen builds the randomizer tables
+            # (batch.py:191); its offline_stage builds only the h1/h2 ones
+            jkey.ek.ensure_enc_tables()
+            off = jg.offline_stage(jkey, SIGNERS, SessionRng(SLICE_SEED))
+            sig = jg.sign_online(off, m)
+            run = {f: strs(getattr(off, f)) for f in SLICE_FIELDS}
+            run.update(r=strs(sig.r), s=strs(sig.s), recid=strs(sig.recid),
+                       sig_valid=[bool(v) for v in np.asarray(sig.sig_valid)])
+            if flag == "1":
+                run["k_randomness"] = strs(off.k_randomness.ints())
+                run["beta_randomness"] = strs(off.beta_randomness.ints())
+            out[name] = run
+            print(f"  gg20 slice {name} {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        if batch_verify is None:
+            os.environ.pop("TPU_MPC_BATCH_VERIFY")
+        else:
+            os.environ["TPU_MPC_BATCH_VERIFY"] = batch_verify
+    return out
+
+
 def _limbs_ints(z):
     import numpy as np
 
@@ -212,23 +295,144 @@ def gg18() -> dict:
     return out
 
 
+def _rng_state(rng) -> list:
+    v, st, gauss = rng._r.getstate()
+    return [v, list(st), gauss]
+
+
+def _l17_key(kg) -> dict:
+    from tpu_mpc.ec import secp256k1 as dec
+
+    p1, p2 = kg.p1, kg.p2
+    return {"x1": strs(p1.x1), "x2": strs(p2.x2), "p": strs(p1.p), "q": strs(p1.q),
+            "Q1": host_pts(p1.Q1), "Q2": host_pts(p2.Q2), "c_key": strs(p1.c_key),
+            "c_key_randomness": strs(p1.c_key_randomness), "pubkey": host_pts(p1.pubkey),
+            "pubkey2": host_pts(p2.pubkey), "ok": [bool(v) for v in kg.ok],
+            "bits": int(p1.ek.n_ctx.bits)}
+
+
+def _sig(sig) -> dict:
+    import numpy as np
+
+    return {"r": strs(sig.r), "s": strs(sig.s), "recid": [int(v) for v in sig.recid],
+            "ok": [bool(v) for v in np.asarray(sig.ok)],
+            "sig_valid": [bool(v) for v in np.asarray(sig.sig_valid)]}
+
+
+def lindell17() -> dict:
+    from tpu_mpc.protocols.lindell17 import batch as l17
+    from tpu_mpc.utils.rng import SessionRng
+
+    rng = SessionRng(L17_SEED)
+    t = time.perf_counter()
+    kg = l17.keygen(L17_S, rng, paillier_bits=L17_BITS)
+    print(f"  lindell17 keygen {time.perf_counter() - t:.1f} s", flush=True)
+    out = {"seed": L17_SEED, "S": L17_S, "bits": L17_BITS, "keygen": _l17_key(kg),
+           "m": str(M_L17), "rng_before_sign": _rng_state(rng)}
+    out["sign"] = _sig(l17.sign(kg, M_L17, rng))
+    out["rng_before_mta"] = _rng_state(rng)
+    msg_b, beta = l17.party_two_to_mta_message_b(kg.p2, rng)
+    alpha, ok = l17.party_one_to_mta_message_b(kg.p1, msg_b)
+    out["mta"] = {"alpha": strs(alpha), "beta": strs(beta), "ok": [bool(v) for v in ok]}
+    out["rng_before_refresh"] = _rng_state(rng)
+    factor = rng.scalars((L17_S,))
+    kg2 = l17.refresh_private_key(kg, factor, rng)
+    out["refresh"] = {"factor": strs(factor), "key": _l17_key(kg2),
+                      "m": str(M_L17_REFRESH), "sign": _sig(l17.sign(kg2, M_L17_REFRESH, rng))}
+    print(f"  lindell17 total {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+def _proof(rp) -> dict:
+    return {f: strs(getattr(rp, f)) for f in
+            ("c1", "c2", "e", "w1", "r1", "w2", "r2", "z", "r_masked")}
+
+
+def pdl576() -> dict:
+    import numpy as np
+
+    from tpu_mpc.ec import secp256k1 as dec
+    from tpu_mpc.host import ec as hec
+    from tpu_mpc.host import paillier as hp
+    from tpu_mpc.mta.mta import paillier_encrypt_ints
+    from tpu_mpc.paillier import paillier as dp
+    from tpu_mpc.utils.rng import SessionRng
+    from tpu_mpc.zk import pdl, range_proof_ni
+    from tpu_mpc.zk.range_proofs import PaillierCtxBatch
+
+    Q = hec.N
+    out = {"bits": PDL_BITS, "S": PDL_S, "seeds": PDL_SEEDS}
+    for name, seed in PDL_SEEDS.items():
+        t = time.perf_counter()
+        rng = SessionRng(seed)
+        keys = [hp.keypair(PDL_BITS, rng=rng._r) for _ in range(PDL_S)]
+        ns = np.asarray([k[0].n for k in keys], dtype=object)
+        ek = PaillierCtxBatch.from_ints(ns, bits=PDL_BITS)
+        dk = dp.BatchDecryptionKey.from_ints([k[1].p for k in keys], [k[1].q for k in keys],
+                                             bits=PDL_BITS)
+        x = (np.asarray([Q - 5] * PDL_S, dtype=object) if name == "soundness"
+             else rng.below(Q // 3, (PDL_S,)))
+        r_enc = rng.units_below(ns, (PDL_S,))
+        c = paillier_encrypt_ints(ek, x, r_enc)
+        run = {"p": [str(k[1].p) for k in keys], "q": [str(k[1].q) for k in keys],
+               "x": strs(x), "r_enc": strs(r_enc), "c": strs(c)}
+        if name in ("roundtrip", "soundness"):
+            proof = range_proof_ni.prove(ek, c, x, r_enc, rng)
+            run["proof"] = _proof(proof)
+            run["verify"] = [bool(v) for v in range_proof_ni.verify(proof, ek, c)]
+        else:
+            xq = x + 1 if name == "wrong_witness" else x
+            stmt = pdl.PDLStatementBatch(
+                ciphertext=c, ek=ek, Q_pt=dec.mul_generator(dec.sc_from_ints(np.mod(xq, Q))))
+            wit = pdl.PDLWitnessBatch(x=x, r=r_enc, dk=dk)
+            v1, vs = pdl.verifier_message1(stmt, rng)
+            p1, ps = pdl.prover_message1(wit, stmt, v1, rng)
+            v2, range_ok = pdl.verifier_message2(p1, stmt, vs)
+            p2, prover_ok = pdl.prover_message2(v1, v2, wit, ps)
+            run.update({
+                "v1": {"c_tag": strs(v1.c_tag), "c_tag_tag": strs(v1.c_tag_tag)},
+                "v_state": {"a": strs(vs.a), "b": strs(vs.b), "blindness": strs(vs.blindness),
+                            "q_tag": host_pts(vs.q_tag)},
+                "p1": {"c_hat": strs(p1.c_hat), "range_proof": _proof(p1.range_proof)},
+                "p_state": {"alpha": strs(ps.alpha), "q_hat": host_pts(ps.q_hat),
+                            "blindness": strs(ps.blindness)},
+                "range_ok": [bool(v) for v in range_ok],
+                "prover_ok": [bool(v) for v in prover_ok],
+                "final": [bool(v) for v in pdl.verifier_finalize(p1, p2, vs)]})
+        out[name] = run
+        print(f"  pdl {name} {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+GOLDENS = {"gg20_blame_768": (gg20_blame, "1"), "gg18_768": (gg18, "1"),
+           "lindell17_1024": (lindell17, "0"), "pdl_576": (pdl576, "0"),
+           "gg20_slice_768": (gg20_slice, "0")}
+
+
 def main() -> int:
+    names = sys.argv[1:] or list(GOLDENS)
+    unknown = [n for n in names if n not in GOLDENS]
+    if unknown:
+        print(f"unknown golden(s) {unknown}; choose from {list(GOLDENS)}", file=sys.stderr)
+        return 2
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["TPU_MPC_PALLAS"] = "0"
-    os.environ["TPU_MPC_ENC_TABLES"] = "1"
     sys.path.insert(0, REPO)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
     t0 = time.perf_counter()
-    for name, fn in (("gg20_blame_768.json", gg20_blame), ("gg18_768.json", gg18)):
+    for name in names:
+        fn, enc_tables = GOLDENS[name]
+        # read per call by the reference's randomizer sampling
+        os.environ["TPU_MPC_ENC_TABLES"] = enc_tables
         t = time.perf_counter()
         obj = fn()
-        with open(os.path.join(OUT, name), "w") as f:
+        with open(os.path.join(OUT, name + ".json"), "w") as f:
             json.dump(obj, f, indent=1)
             f.write("\n")
-        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+        print(f"{name}.json: {time.perf_counter() - t:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

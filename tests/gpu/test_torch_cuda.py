@@ -321,3 +321,57 @@ def test_k5_ragged_lanes_equal_plain(dev):
             zi = pow(val(pts[j, 2]) or 1, -1, pe.P_INT)
             assert val(got[j, 0]) == val(pts[j, 0]) * zi * zi % pe.P_INT
             assert val(got[j, 1]) == val(pts[j, 1]) * zi ** 3 % pe.P_INT
+
+
+def _two_party_run(device) -> dict:
+    """Lindell'17 keygen(2) and sign at 1024 bits, then one interactive PDL
+    round under the keygen's Paillier keys, from SessionRng(0x17): every
+    output as plain ints, bools and host points."""
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.mta.mta import paillier_encrypt_ints
+    from tpu_mpc_torch.protocols.lindell17 import batch as l17
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.zk import pdl
+
+    ints = lambda a: [int(v) for v in np.asarray(a, dtype=object).reshape(-1)]
+    bools = lambda a: [bool(v) for v in np.asarray(a).reshape(-1)]
+    rng = SessionRng(0x17)
+    kg = l17.keygen(2, rng, 1024, device=device)
+    sig = l17.sign(kg, 0xABCDEF, rng)
+    out = {"x1": ints(kg.p1.x1), "x2": ints(kg.p2.x2), "p": ints(kg.p1.p), "q": ints(kg.p1.q),
+           "c_key": ints(kg.p1.c_key), "pubkey": ec.points_to_host_list(kg.p1.pubkey),
+           "ok": bools(kg.ok), "r": ints(sig.r), "s": ints(sig.s), "recid": ints(sig.recid),
+           "sig_ok": bools(sig.ok), "sig_valid": bools(sig.sig_valid)}
+    ek, dk = kg.p1.ek, kg.p1.dk
+    x = rng.below(hec.N // 3, (2,))
+    r = rng.units_below(ek.n, (2,))
+    c = paillier_encrypt_ints(ek, x, r)
+    stmt = pdl.PDLStatementBatch(ciphertext=c, ek=ek,
+                                 Q_pt=ec.mul_generator(ec.sc_from_ints(x, device)))
+    wit = pdl.PDLWitnessBatch(x=x, r=r, dk=dk)
+    v1, vs = pdl.verifier_message1(stmt, rng)
+    p1, ps = pdl.prover_message1(wit, stmt, v1, rng)
+    v2, range_ok = pdl.verifier_message2(p1, stmt, vs)
+    p2, prover_ok = pdl.prover_message2(v1, v2, wit, ps)
+    out.update(c_tag=ints(v1.c_tag), alpha=ints(ps.alpha), c_hat=ints(p1.c_hat),
+               rp_c1=ints(p1.range_proof.c1), rp_z=ints(p1.range_proof.z),
+               range_ok=bools(range_ok), prover_ok=bools(prover_ok),
+               final=bools(pdl.verifier_finalize(p1, p2, vs)))
+    return out
+
+
+def test_lindell17_and_pdl_on_the_card_equal_the_cpu(dev):
+    """Lindell'17 keygen(2) + sign at 1024 bits and one PDL round (the range
+    proof's stacked encryptions included) on the card: every field equal to
+    the same seed's CPU run (plain versions); K1, K3, K4, K5 launched."""
+    from tpu_mpc_torch import kernels
+
+    kernels.reset_launches()
+    got = _two_party_run(dev)
+    launches = dict(kernels.LAUNCHES)
+    assert all(launches[k] > 0 for k in ("K1", "K3", "K4", "K5")) and launches["K2"] == 0
+    want = _two_party_run("cpu")
+    assert got == want
+    assert all(got["ok"] + got["sig_ok"] + got["sig_valid"] + got["range_ok"]
+               + got["prover_ok"] + got["final"])

@@ -68,6 +68,24 @@ def host_mulmod(*arrays_then_mod) -> np.ndarray:
     return out.reshape(shape)
 
 
+def host_invmod(a, mod) -> np.ndarray:
+    """Elementwise a^{-1} mod `mod` on object ints; 0 where a is not
+    invertible, so that a check built on it fails (the reference's
+    zk/range_proofs.py:_invmod)."""
+    a = np.asarray(a, dtype=object)
+    mod = np.asarray(mod, dtype=object)
+    shape = np.broadcast_shapes(a.shape, mod.shape)
+    fa = np.broadcast_to(a, shape).reshape(-1)
+    fm = np.broadcast_to(mod, shape).reshape(-1)
+    out = np.empty(fa.shape[0], dtype=object)
+    for b in range(fa.shape[0]):
+        try:
+            out[b] = pow(int(fa[b]), -1, int(fm[b]))
+        except ValueError:
+            out[b] = 0
+    return out.reshape(shape)
+
+
 def host_prod_axis0(vals, mod) -> np.ndarray:
     """prod over the leading axis of object-int `vals` modulo `mod`."""
     vals = np.asarray(vals, dtype=object)

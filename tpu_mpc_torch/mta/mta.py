@@ -5,7 +5,7 @@ each peer's ring-Pedersen setup); Bob homomorphically computes E(ab + beta') and
 knowledge of b and beta'; alpha + beta = ab mod q.  Ciphertext math is
 ModCtx modexps (kernel K1; Bob's randomizer r^N from the randomizer tables,
 kernel K2, in the tables configuration); decryption is
-PaillierCtxBatch.decrypt_sk.
+PaillierCtxBatch.decrypt_sk or paillier.decrypt (K1, CRT).
 """
 
 from __future__ import annotations
@@ -32,20 +32,18 @@ Q = hec.N
 
 
 def paillier_encrypt_ints(ek: PaillierCtxBatch, m, r, rn=None) -> np.ndarray:
-    """(1 + m n) r^n mod n^2 on object ints (device modexp; the key
-    owner's CRT half-width path when the sk is attached).  rn: r^n already
-    computed (randomizer-table sampling, sample_unit_with_power); r is then
-    not read (it may be a DeferredLaunch, whose np.shape is ())."""
-    m = np.asarray(m, dtype=object)
-    shape = np.broadcast_shapes(m.shape, np.shape(r), ek.n_ctx.batch_shape)
-    n = np.broadcast_to(ek.n, shape)
-    if rn is not None:
-        rn = resolve(rn)
-    elif ek.sk_ctx is not None:
-        rn = ek.pow_n_sk(r)
-    else:
-        rn = ek.nn_ctx.pow(r, n, ek.n_ctx.bits)
-    return _mulmod(np.broadcast_to(m, shape) * n + 1, rn, np.broadcast_to(ek.nn, shape))
+    """(1 + m n) r^n mod n^2 on object ints (paillier.encrypt: device
+    modexp, the key owner's CRT half-width path when the sk is attached)."""
+    return dp.encrypt(ek, m, r, rn)
+
+
+def paillier_decrypt_ints(dk: dp.BatchDecryptionKey, c, batch_shape, bits: int = 2048) -> np.ndarray:
+    """CRT decrypt object-int ciphertexts (paillier.decrypt: one K1 launch
+    over the stacked (p^2, q^2) moduli).  dk's batch must broadcast to
+    `batch_shape`; bits is the reference's argument, the key's width, which
+    dk carries."""
+    c = np.broadcast_to(np.asarray(c, dtype=object), batch_shape)
+    return np.broadcast_to(np.asarray(dp.decrypt(dk, c), dtype=object), batch_shape)
 
 
 def expand_tree_axis(dk: dp.BatchDecryptionKey, axis: int) -> dp.BatchDecryptionKey:
@@ -136,16 +134,20 @@ def msg_b_index(m: MessageBBatch, i: int) -> MessageBBatch:
 
 
 def verify_proofs_get_alpha(dk: dp.BatchDecryptionKey, msg_b: MessageBBatch, a_ints,
-                            batch_shape, ek_sk: PaillierCtxBatch):
-    """Alice decrypts alpha (decrypt_sk) and checks Bob's dlog proofs and the
-    EC identity b*a*G + beta'G == alpha G.  -> (alpha mod q, alpha_raw, ok).
-    Every caller decrypts through ek_sk (K1): the reference's GG18 passes no
-    ek_sk and decrypts on its CIOS limb path instead, to the same integers;
-    dk is kept for the reference's signature and not read."""
-    alpha_raw = np.broadcast_to(np.asarray(ek_sk.decrypt_sk(msg_b.c), dtype=object),
-                                batch_shape)
+                            batch_shape, ek_sk: PaillierCtxBatch | None = None):
+    """Alice decrypts alpha and checks Bob's dlog proofs and the EC identity
+    b*a*G + beta'G == alpha G.  -> (alpha mod q, alpha_raw, ok).  Decrypts
+    through ek_sk's attached sk when given (decrypt_sk), else through dk
+    (paillier.decrypt); both are one K1 launch.  The reference decrypts on
+    its CIOS limb path where it passes no ek_sk: the same integers."""
+    if ek_sk is not None:
+        alpha_raw = ek_sk.decrypt_sk(msg_b.c)
+        dev = ek_sk.n_ctx.device
+    else:
+        alpha_raw = dp.decrypt(dk, msg_b.c)
+        dev = dk.crt()[0].device
+    alpha_raw = np.broadcast_to(np.asarray(alpha_raw, dtype=object), batch_shape)
     alpha = np.mod(alpha_raw, Q)
-    dev = ek_sk.n_ctx.device
     ok = sigma.dlog_verify(msg_b.b_proof) & sigma.dlog_verify(msg_b.beta_tag_proof)
     g_alpha = dec.mul_generator(dec.sc_from_ints(alpha, dev))
     a_sc = dec.sc_from_ints(

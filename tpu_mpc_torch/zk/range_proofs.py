@@ -275,6 +275,48 @@ def _derive_enc_base(n) -> int:
         ctr += 1
 
 
+def crt_decrypt(sk_ctx: ModCtx, p, q, hp, hq, pinv_q, c_ints, bits: int, key_shape,
+                sync: bool = True):
+    """CRT Paillier decrypt of c under the keys (p, q) of batch shape B =
+    key_shape (p and q broadcast to it): the two half-width c^{x-1} mod x^2
+    modexps run as ONE stacked K1 launch over sk_ctx, the ctx of the moduli
+    (p^2, q^2) with batch [2, *B]; the L-function divisions, the multipliers
+    hp, hq (crt_h) and the CRT recombination (pinv_q = p^{-1} mod q) are a
+    lazy host map (kzen decrypt_crt shape).  bits: the width of n = p q."""
+    c = np.asarray(c_ints, dtype=object)
+    shape = np.broadcast_shapes(c.shape, tuple(key_shape))
+    exps = np.stack([np.broadcast_to(p, shape) - 1, np.broadcast_to(q, shape) - 1])
+    # extra leading batch dims of c must not right-align against the sk
+    # ctx's own (p^2, q^2) axis: insert broadcast axes after it
+    for _ in range(max(0, len(shape) - len(key_shape))):
+        sk_ctx = sk_ctx.expand(1)
+    u_l = sk_ctx.pow(c[None], exps, ebits_hint=bits // 2, sync=False)
+    flat = lambda a: np.broadcast_to(a, shape).reshape(-1)
+    pb, qb, hpb, hqb, crb = flat(p), flat(q), flat(hp), flat(hq), flat(pinv_q)
+
+    def combine(u):
+        up = np.broadcast_to(u[0], shape).reshape(-1)
+        uq = np.broadcast_to(u[1], shape).reshape(-1)
+        out = np.empty(up.shape[0], dtype=object)
+        for i in range(up.shape[0]):
+            p_, q_ = int(pb[i]), int(qb[i])
+            mp = (int(up[i]) - 1) // p_ * int(hpb[i]) % p_
+            mq = (int(uq[i]) - 1) // q_ * int(hqb[i]) % q_
+            out[i] = mp + p_ * ((mq - mp) * int(crb[i]) % q_)
+        return out.reshape(shape)
+
+    lz = LazyMap(u_l, combine)
+    return resolve(lz) if sync else lz
+
+
+def crt_h(n, x) -> int:
+    """L_x((1 + n)^{x-1} mod x^2)^{-1} mod x, the CRT decryption multiplier
+    of the factor x of n."""
+    n, x = int(n), int(x)
+    u = pow(1 + n, x - 1, x * x)
+    return pow((u - 1) // x, -1, x)
+
+
 @dataclasses.dataclass
 class PaillierCtxBatch:
     """Alice's Paillier public key batch with device ctxs for N and N^2.
@@ -341,12 +383,8 @@ class PaillierCtxBatch:
         self.sk_cr = vec(lambda a, b: pow(int(a), -1, int(b)), pp, qq)
         self.sk_p, self.sk_q = p, q
 
-        def hx(nv, xv):
-            u = pow(1 + int(nv), int(xv) - 1, int(xv) * int(xv))
-            return pow((u - 1) // int(xv), -1, int(xv))
-
-        self.sk_hp = vec(hx, n, p)
-        self.sk_hq = vec(hx, n, q)
+        self.sk_hp = vec(crt_h, n, p)
+        self.sk_hq = vec(crt_h, n, q)
         self.sk_pinv_q = vec(lambda a, b: pow(int(a), -1, int(b)), p, q)
         return self
 
@@ -418,38 +456,10 @@ class PaillierCtxBatch:
         return self.n_ctx.pow_fixed_prod_rns((T,), [exps], (ebits_hint,), sync=sync, gmap=gmap)
 
     def decrypt_sk(self, c_ints, sync: bool = True):
-        """CRT Paillier decrypt: the two half-width c^{x-1} mod x^2 modexps
-        run as ONE stacked launch; the L-function divisions, h multipliers
-        and CRT recombination are a lazy host map (kzen decrypt_crt shape)."""
-        c = np.asarray(c_ints, dtype=object)
-        shape = np.broadcast_shapes(c.shape, self.n_ctx.batch_shape)
-        exps = np.stack([
-            np.broadcast_to(self.sk_p, shape) - 1,
-            np.broadcast_to(self.sk_q, shape) - 1,
-        ])
-        # extra leading batch dims of c must not right-align against the sk
-        # ctx's own (p^2, q^2) axis: insert broadcast axes after it
-        sk_ctx = self.sk_ctx
-        for _ in range(max(0, len(shape) - len(self.n_ctx.batch_shape))):
-            sk_ctx = sk_ctx.expand(1)
-        u_l = sk_ctx.pow(c[None], exps, ebits_hint=self.n_ctx.bits // 2, sync=False)
-        flat = lambda a: np.broadcast_to(a, shape).reshape(-1)
-        pb, qb = flat(self.sk_p), flat(self.sk_q)
-        hpb, hqb, crb = flat(self.sk_hp), flat(self.sk_hq), flat(self.sk_pinv_q)
-
-        def combine(u):
-            up = np.broadcast_to(u[0], shape).reshape(-1)
-            uq = np.broadcast_to(u[1], shape).reshape(-1)
-            out = np.empty(up.shape[0], dtype=object)
-            for i in range(up.shape[0]):
-                p_, q_ = int(pb[i]), int(qb[i])
-                mp = (int(up[i]) - 1) // p_ * int(hpb[i]) % p_
-                mq = (int(uq[i]) - 1) // q_ * int(hqb[i]) % q_
-                out[i] = mp + p_ * ((mq - mp) * int(crb[i]) % q_)
-            return out.reshape(shape)
-
-        lz = LazyMap(u_l, combine)
-        return resolve(lz) if sync else lz
+        """CRT Paillier decrypt through the attached sk (crt_decrypt)."""
+        return crt_decrypt(self.sk_ctx, self.sk_p, self.sk_q, self.sk_hp, self.sk_hq,
+                           self.sk_pinv_q, c_ints, self.n_ctx.bits, self.n_ctx.batch_shape,
+                           sync=sync)
 
     def pow_n_sk(self, base, sync: bool = True):
         """base^N mod N^2 via the attached sk (two half-width modexps + CRT)."""
