@@ -58,7 +58,7 @@ Phases (any failure exits non-zero and prints no result line):
              kernels and take the G = 8 batch verification with no
              per-session fallback; every signature verifies under its own
              group's y.
-  6. blame   GG20 identifiable aborts on the slice's tables key (S = 128,
+  6. blame   GG20 identifiable aborts on the slice's tables key (S = 64,
              signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
              (step 6) or the committed g_gamma ("decommit") of per-session
              corruption matrices, a clean offline_stage with s_i corrupted
@@ -86,26 +86,45 @@ Phases (any failure exits non-zero and prints no result line):
   9. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
              MSG_2P, host only: valid, low s, no kernel launched; prints
              the host seconds.
+ 10. runtime the GG20 state machines in this process on the card, replaying
+             the JAX package's transcript tests/gpu/fixtures/runtime_768.json
+             (run_simulation over three Gg20Keygen at 768 bits, an offline
+             stage and sign_manual): every message string and output equal
+             to it, every launch shape held, K1, K3, K4, K5 launched and K2
+             not; then party processes on the card: the relay on a free
+             port, three `tpu_mpc_torch.runtime.cli keygen` at 2048-bit
+             Paillier at once, `cli sign` for the quorums 1,2 and 2,3 at once
+             (equal valid (r, s) under the one y); the GG18 KV relay with
+             three keygen and two sign clients at 1024 bits (one y = sum y_i,
+             shares reconstruct, equal valid low-s signatures).  Every child
+             must exit 0 on the card with K1, K3, K4, K5 launched; prints the
+             walls and one process's import-torch-and-CUDA-context time.
 Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
 launches_multitenant: the first timed multi-tenant pass; launches_blame:
 the blame phase; launches_gg18: the timed GG18 [0, 1] pass;
-launches_lindell17: the lindell17 phase), the card's name and power limit,
+launches_lindell17: the lindell17 phase; launches_runtime: the runtime
+phase's replay), the card's name and power limit,
 and last {"ok": true, "device": {...}}.  It imports nothing of jax or of
 the reference package tpu_mpc.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
 import random
+import signal
 import subprocess
 import sys
 import time
 
 S_SESSIONS = 128
+# blame's sessions: its host Paillier opens (~0.24 s each on the card's host)
+# grow with S, so it runs at half the slice's S to keep the whole run in time
+BLAME_S = 64
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
 EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4/K5 lane counts off their 8-, 16-, 32-lane blocks
@@ -1016,14 +1035,15 @@ def run_slice(dev, material, host_profile: bool = False):
     then timed passes in the order uniform, tables, tables, uniform.  Kernel
     counts are set to 0 just before each timed pass and read just after it;
     the tables passes must launch all five kernels, the uniform ones every
-    kernel but K2."""
+    kernel but K2.  Returns (the first timed tables pass's launches, the
+    tables key at S = 128, its 1-session key)."""
     import torch
 
     from tpu_mpc_torch import kernels
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
     from tpu_mpc_torch.utils.rng import SessionRng
 
-    keys, rngs = {}, {}
+    keys, rngs, key1s = {}, {}, {}
     for cfg, flag in CONFIGS.items():
         os.environ[ENC_ENV] = flag
         torch.cuda.synchronize()
@@ -1034,7 +1054,7 @@ def run_slice(dev, material, host_profile: bool = False):
         require((key1.dlog_stmt.tables_rns is not None) == (flag == "1")
                 and (key1.ek.enc_tab_h is not None) == (flag == "1"),
                 f"slice[{cfg}]: the key's tables do not match the configuration")
-        keys[cfg] = gg20.tile_key(key1, S_SESSIONS)
+        keys[cfg], key1s[cfg] = gg20.tile_key(key1, S_SESSIONS), key1
         rngs[cfg] = SessionRng(0xC41B)
         log(f"slice[{cfg}]: the keygen's bench key loaded in {dt:.2f} s"
             + (" (h1/h2 and randomizer tables built)" if flag == "1" else "")
@@ -1102,7 +1122,7 @@ def run_slice(dev, material, host_profile: bool = False):
         log("slice[tables]: host profile of one more pass (cProfile, by own time)\n"
             + buf.getvalue())
     # the main path is the tables configuration: its first timed pass
-    return next(r[1] for r in runs if r[0] == "tables"), keys["tables"]
+    return next(r[1] for r in runs if r[0] == "tables"), keys["tables"], key1s["tables"]
 
 
 # --------------------------------------------------------------------------
@@ -1227,7 +1247,7 @@ def _spec(step, S) -> list:
 
 
 def run_blame(dev, key, held: set):
-    """GG20 identifiable aborts on the slice's tables key (S = 128, signers
+    """GG20 identifiable aborts on the slice's tables key (S = 64, signers
     [0, 1]): one offline_stage per corruption step (5, 6, "decommit"), each
     with a per-session matrix (session b on pattern b % 4 of [[], [0], [1],
     [0, 1]], b % 3 of [[], [0], [1]] for "decommit"), then its blame; a clean
@@ -1585,6 +1605,292 @@ def run_cclst19():
         f"{kg_s:.2f} (of which the CL group setup {setup.secs:.2f}), sign {sign_s:.2f}")
 
 
+# --------------------------------------------------------------------------
+# phase 10: the runtime (state machines, relays, CLI and GG18 clients)
+# --------------------------------------------------------------------------
+
+RUNTIME_GOLDEN = os.path.join("tests", "gpu", "fixtures", "runtime_768.json")
+RUNTIME_BITS = 2048                  # the CLI's GG20 keygen, at production width
+GG18_CLIENT_BITS = 1024             # cut from 2048 to keep the whole run under 600 s
+RUNTIME_MSG = "tpu-mpc runtime smoke"
+QUORUMS = ((1, 2), (2, 3))
+CHILD_TIMEOUT = 400                  # seconds for one party process
+
+
+def _recorder(log_list: list):
+    def rec(msg):
+        log_list.append(msg.to_json())
+        return msg
+    return rec
+
+
+def run_runtime_replay(dev, repo, held: set) -> dict:
+    """Step 1: the GG20 state machines in one process on the card, held to
+    the JAX package's transcript (tests/gpu/fixtures/runtime_768.json, read
+    as JSON): run_simulation over Gg20Keygen(i, 1, 3, SessionRng(100 + i),
+    768), then Gg20OfflineStage for its s_l from SessionRng(201) and (202),
+    and sign_manual of its message.  Every delivered message string and every
+    output must equal the golden's; every K1-K5 launch shape is held against
+    its plain version on its first call.  Counts are set to 0 just before
+    and read just after: K1, K3, K4 and K5 must launch, K2 must not."""
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.runtime.gg20_keygen_sm import Gg20Keygen
+    from tpu_mpc_torch.runtime.gg20_sign_sm import Gg20OfflineStage, partial_sig_local, sign_manual
+    from tpu_mpc_torch.runtime.state_machine import run_simulation
+    from tpu_mpc_torch.runtime.wire import decode_value, encode_value
+    from tpu_mpc_torch.utils.rng import SessionRng
+
+    with open(os.path.join(repo, RUNTIME_GOLDEN)) as f:
+        gold = json.load(f)
+    bits, m = gold["bits"], int(gold["m"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+        t = time.perf_counter()
+        kg_msgs = []
+        kg = [Gg20Keygen(i, gold["t"], gold["n"], SessionRng(seed), paillier_bits=bits,
+                         device=dev) for i, seed in enumerate(gold["keygen_seeds"], 1)]
+        outs = run_simulation(kg, tamper=_recorder(kg_msgs))
+        kg_s = time.perf_counter() - t
+        require(kg_msgs == gold["keygen_msgs"], "runtime replay: the keygen messages differ "
+                f"from the golden's (first at {_first_diff(kg_msgs, gold['keygen_msgs'])})")
+        require([encode_value(o) for o in outs] == gold["keygen_outputs"],
+                "runtime replay: the keygen outputs differ from the golden's")
+        t = time.perf_counter()
+        off_msgs = []
+        s_l = gold["s_l"]
+        sms = [Gg20OfflineStage(li, s_l, outs[g], SessionRng(seed), device=dev)
+               for li, (g, seed) in enumerate(zip(s_l, gold["offline_seeds"]), 1)]
+        off = run_simulation(sms, tamper=_recorder(off_msgs))
+        off_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(off_msgs == gold["offline_msgs"], "runtime replay: the offline messages differ "
+            f"from the golden's (first at {_first_diff(off_msgs, gold['offline_msgs'])})")
+    require([encode_value(o) for o in off] == gold["offline_outputs"],
+            "runtime replay: the offline outputs differ from the golden's")
+    partials = [partial_sig_local(o, m) for o in off]
+    sig = sign_manual(off[0], m, partials[1:])
+    require([str(v) for v in partials] == gold["partials"] and sig == decode_value(gold["sig"])
+            and sig["valid"], "runtime replay: the signature differs from the golden's")
+    missing = [k for k in ("K1", "K3", "K4", "K5") if launches[k] == 0]
+    require(not missing and launches["K2"] == 0,
+            f"runtime replay: K1, K3, K4, K5 must launch and K2 must not: {launches}")
+    log(f"runtime replay ({bits}-bit Paillier, t=1, n=3, s_l={s_l}): {len(kg_msgs)} keygen and "
+        f"{len(off_msgs)} offline messages, every output and the signature equal to "
+        f"{RUNTIME_GOLDEN}; keygen {kg_s:.2f} s, offline stage {off_s:.2f} s (the plain holds "
+        f"included)")
+    log("runtime replay: " + _kernel_summary(inst, launches))
+    log(f"runtime replay: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; held "
+        f"against plain in this step: {', '.join(inst.new_holds)}")
+    return launches
+
+
+def _first_diff(a: list, b: list):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return min(len(a), len(b)) if len(a) != len(b) else None
+
+
+class _Children:
+    """The processes this phase starts; every one is stopped on the way out."""
+
+    def __init__(self, repo, work):
+        self.repo, self.work, self.procs = repo, work, []
+        self.env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def start(self, tag, module, *args):
+        out = open(os.path.join(self.work, tag + ".out"), "w+")
+        err = open(os.path.join(self.work, tag + ".err"), "w+")
+        p = subprocess.Popen([sys.executable, "-m", module, *map(str, args)], cwd=self.work,
+                             env=self.env, stdout=out, stderr=err, text=True,
+                             start_new_session=True)
+        p.tag, p.out, p.err, p.t0 = tag, out, err, time.perf_counter()
+        self.procs.append(p)
+        return p
+
+    def server(self, module, *args) -> tuple:
+        """Start a relay on a free port; -> (process, its address)."""
+        p = subprocess.Popen([sys.executable, "-m", module, "--port", "0", *args],
+                             cwd=self.work, env=self.env, stdout=subprocess.PIPE, text=True,
+                             start_new_session=True)
+        self.procs.append(p)
+        line = p.stdout.readline()
+        require(" on 127.0.0.1:" in line, f"{module}: no listening line ({line!r})")
+        return p, "http://127.0.0.1:" + line.split("127.0.0.1:")[1].split()[0]
+
+    def wait(self, procs) -> list:
+        """Wait for `procs`; each must exit 0 on the card, its launch counts
+        above 0 for K1, K3, K4, K5 and 0 for K2.  -> [(stdout, the device
+        line's dict, wall seconds)]."""
+        res = []
+        for p in procs:
+            try:
+                p.wait(timeout=max(1, CHILD_TIMEOUT - (time.perf_counter() - p.t0)))
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            wall = time.perf_counter() - p.t0
+            p.out.seek(0)
+            p.err.seek(0)
+            out, err = p.out.read(), p.err.read()
+            require(p.returncode == 0,
+                    f"runtime: {p.tag} exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+            lines = [ln for ln in err.splitlines() if ln.startswith("device: ")]
+            require(lines, f"runtime: {p.tag} printed no device line:\n{err[-2000:]}")
+            info = json.loads(lines[-1][len("device: "):])
+            la = info["launches"]
+            require(info["device"].startswith("cuda") and la["K2"] == 0
+                    and all(la[k] > 0 for k in ("K1", "K3", "K4", "K5")),
+                    f"runtime: {p.tag} did not run its kernels on the card: {info}")
+            res.append((out, info, wall))
+        return res
+
+    def stop(self):
+        """Stop every process started here with its session (a party's
+        prime-search workers included)."""
+        for p in self.procs:
+            for sig in (signal.SIGTERM, signal.SIGKILL):
+                try:
+                    os.killpg(p.pid, sig)
+                except ProcessLookupError:
+                    break
+                try:
+                    p.wait(timeout=10)
+                    break
+                except subprocess.TimeoutExpired:
+                    continue
+            for f in (getattr(p, "out", None), getattr(p, "err", None)):
+                if f is not None:
+                    f.close()
+
+
+def _sig_line(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    require(lines, f"runtime: no signature line in {out[-500:]!r}")
+    return json.loads(lines[-1])
+
+
+def run_runtime_processes(repo, work) -> dict:
+    """Steps 2 and 3: party processes on the card over the relays.  The
+    GG20 relay (tpu_mpc_torch.runtime.relay_server) on a free port, three
+    `cli keygen -t 1 -n 3 --paillier-bits 2048` processes at once, then
+    `cli sign` for the quorums 1,2 and 2,3, each quorum's two signers in a
+    fresh room: both must print the same (r, s) with "valid": true, and
+    every signature must verify under the one y of the three key files (the
+    host oracle); the two quorums sign at once, each in its own room.  Then
+    the GG18 KV relay with {"parties": "3", "threshold": "1"}, three
+    gg18_keygen_client and two gg18_sign_client processes at 1024 bits: y the
+    same in every key store and the sum of y_i, every pair of x shares
+    reconstructs sum u, both signers' (r, s) equal, valid under y, low s.
+    Every process must exit 0, log the card as its device and have launched
+    K1, K3, K4 and K5 (and not K2).  -> walls."""
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.runtime.cli import load_local_key
+    from tpu_mpc_torch.vss import feldman
+
+    walls = {}
+    ch = _Children(repo, work)
+    try:
+        t = time.perf_counter()
+        probe = subprocess.run(
+            [sys.executable, "-c", "import time; t = time.perf_counter(); import torch; "
+             "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+             "print(time.perf_counter() - t)"],
+            cwd=work, env=ch.env, capture_output=True, text=True, timeout=120)
+        require(probe.returncode == 0, f"runtime: the start-up probe failed: {probe.stderr}")
+        walls["process start-up"] = time.perf_counter() - t
+        walls["import torch + CUDA context"] = float(probe.stdout.split()[-1])
+
+        _, addr = ch.server("tpu_mpc_torch.runtime.relay_server")
+        cli = "tpu_mpc_torch.runtime.cli"
+        t = time.perf_counter()
+        kgs = [ch.start(f"keygen{i}", cli, "keygen", "-a", addr, "-r", "kg", "-i", i, "-t", 1,
+                        "-n", 3, "-o", f"local{i}.json", "--paillier-bits", RUNTIME_BITS)
+               for i in (1, 2, 3)]
+        res = ch.wait(kgs)
+        walls["gg20 cli keygen"] = time.perf_counter() - t
+        keys = [load_local_key(os.path.join(work, f"local{i}.json")) for i in (1, 2, 3)]
+        y = keys[0]["y"]
+        require(all(k["y"] == y for k in keys) and
+                all(k["paillier_p"].bit_length() * 2 == RUNTIME_BITS for k in keys),
+                "runtime: the three key files disagree on y or on the Paillier width")
+        log(f"runtime cli keygen: 3 processes, t=1, n=3, {RUNTIME_BITS}-bit Paillier, one y; "
+            f"wall {walls['gg20 cli keygen']:.2f} s; per process (wall s, launches): "
+            + "; ".join(f"{p.tag} {w:.2f} {json.dumps(info['launches'])}"
+                        for p, (_, info, w) in zip(kgs, res)))
+        digest = int.from_bytes(hashlib.sha256(RUNTIME_MSG.encode()).digest(), "big")
+        # both quorums at once, each in its own room (party 2 signs in both)
+        t = time.perf_counter()
+        sg = {q: [ch.start(f"sign{''.join(map(str, q))}-{i}", cli, "sign", "-a", addr, "-r",
+                           "s" + "".join(map(str, q)), "-p", ",".join(map(str, q)), "-d",
+                           RUNTIME_MSG, "-l", f"local{i}.json") for i in q] for q in QUORUMS}
+        for quorum, procs in sg.items():
+            res = ch.wait(procs)
+            walls[f"gg20 cli sign {quorum}"] = max(w for _, _, w in res)
+            sigs = [_sig_line(out) for out, _, _ in res]
+            require(all(s == sigs[0] for s in sigs) and sigs[0]["valid"] is True,
+                    f"runtime: quorum {quorum} signers disagree or are invalid: {sigs}")
+            r, s_ = int(sigs[0]["r"], 16), int(sigs[0]["s"], 16)
+            require(hec.ecdsa_verify(y, digest % hec.N, r, s_) and s_ <= hec.N // 2,
+                    f"runtime: quorum {quorum}'s signature does not verify under y (low s)")
+            log(f"runtime cli sign {quorum}: both signers print r={sigs[0]['r']} "
+                f"s={sigs[0]['s']}, valid, verified under y with low s; wall "
+                f"{walls[f'gg20 cli sign {quorum}']:.2f} s; per process (wall s, launches): "
+                + "; ".join(f"{p.tag} {w:.2f} {json.dumps(info['launches'])}"
+                            for p, (_, info, w) in zip(procs, res)))
+        walls["gg20 cli sign, both quorums"] = time.perf_counter() - t
+
+        params = os.path.join(work, "params.json")
+        with open(params, "w") as f:
+            json.dump({"parties": "3", "threshold": "1"}, f)
+        _, kv = ch.server("tpu_mpc_torch.runtime.kv_server", "--params", params)
+        t = time.perf_counter()
+        kgs = [ch.start(f"gg18keygen{i}", "tpu_mpc_torch.runtime.gg18_keygen_client",
+                        "--address", kv, "--params", params, "--output", f"gg18_{i}.json",
+                        "--paillier-bits", GG18_CLIENT_BITS) for i in (1, 2, 3)]
+        res = ch.wait(kgs)
+        walls["gg18 keygen clients"] = time.perf_counter() - t
+        stores = [load_local_key(os.path.join(work, f"gg18_{i}.json")) for i in (1, 2, 3)]
+        by_num = {k["party_num"]: k for k in stores}
+        require(sorted(by_num) == [1, 2, 3], "gg18 clients: party numbers are not 1, 2, 3")
+        y18 = stores[0]["y"]
+        acc = None
+        for pt in stores[0]["y_vec"]:
+            acc = pt if acc is None else hec.add(acc, pt)
+        total = sum(k["u_i"] for k in stores) % hec.N
+        require(all(k["y"] == y18 for k in stores) and acc == y18 and hec.mul(total) == y18,
+                "gg18 clients: y differs between key stores or is not the sum of y_i")
+        for a, b in ((1, 2), (2, 3), (1, 3)):
+            require(feldman.reconstruct([a - 1, b - 1], [by_num[a]["x_i"], by_num[b]["x_i"]])
+                    == total, f"gg18 clients: the x shares of {a}, {b} do not reconstruct")
+        log(f"gg18 keygen clients: 3 processes, {GG18_CLIENT_BITS}-bit Paillier; one y = sum y_i "
+            f"= (sum u) G, every pair of x shares reconstructs sum u; wall "
+            f"{walls['gg18 keygen clients']:.2f} s; per process (launches): "
+            + "; ".join(json.dumps(info["launches"]) for _, info, _ in res))
+        t = time.perf_counter()
+        sg = [ch.start(f"gg18sign{i}", "tpu_mpc_torch.runtime.gg18_sign_client", "--address",
+                       kv, "--local-share", f"gg18_{i}.json", "--data-to-sign", RUNTIME_MSG)
+              for i in (1, 2)]
+        res = ch.wait(sg)
+        walls["gg18 sign clients"] = time.perf_counter() - t
+        sigs = [_sig_line(out) for out, _, _ in res]
+        r, s_ = int(sigs[0]["r"], 16), int(sigs[0]["s"], 16)
+        require(all(s == sigs[0] for s in sigs) and sigs[0]["valid"] is True
+                and hec.ecdsa_verify(y18, digest % hec.N, r, s_) and s_ <= hec.N // 2,
+                f"gg18 sign clients: the signers disagree or the signature is invalid: {sigs}")
+        log(f"gg18 sign clients: 2 processes, both print r={sigs[0]['r']} s={sigs[0]['s']}, "
+            f"valid under y with low s; wall {walls['gg18 sign clients']:.2f} s; per process "
+            "(launches): " + "; ".join(json.dumps(info["launches"]) for _, info, _ in res))
+    finally:
+        ch.stop()
+    log(f"runtime walls (s): {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    return walls
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1632,13 +1938,20 @@ def main() -> int:
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
     res16, material, kg_launches = run_keygen(dev, repo)
-    launches, key128 = run_slice(dev, material, host_profile="--host-profile" in sys.argv[1:])
+    launches, key128, key1 = run_slice(dev, material,
+                                       host_profile="--host-profile" in sys.argv[1:])
     mt_launches = run_multitenant(dev, res16)
     held = set()
-    blame_launches = run_blame(dev, key128, held)
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+
+    blame_launches = run_blame(dev, gg20.tile_key(key1, BLAME_S), held)
     gg18_launches = run_gg18(dev, key128, held)
     l17_launches = run_lindell17(dev, held)
     run_cclst19()
+    rt_launches = run_runtime_replay(dev, repo, held)
+    work = os.path.join(repo, "build", "runtime_smoke", str(os.getpid()))
+    os.makedirs(work, exist_ok=True)
+    run_runtime_processes(repo, work)
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -1659,6 +1972,7 @@ def main() -> int:
             "launches_keygen": kg_launches[name], "launches_multitenant": mt_launches[name],
             "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
             "launches_lindell17": l17_launches[name],
+            "launches_runtime": rt_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,

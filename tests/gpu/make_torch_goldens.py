@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Write the reference package's GG20 slice and blame, GG18, Lindell'17 and
-PDL outputs as golden files for the port's CPU tests
+"""Write the reference package's GG20 slice and blame, GG18, Lindell'17,
+PDL and runtime outputs, and its kernels' outputs on the kernel tests'
+inputs, as golden files for the port's CPU tests
 (tests/gpu/test_torch_gg20.py, test_torch_blame.py, test_torch_gg18.py,
-test_torch_lindell17.py, test_torch_pdl.py).
+test_torch_lindell17.py, test_torch_pdl.py, test_torch_runtime.py,
+test_torch_ec.py, test_torch_rns.py, test_torch_fixed.py).
 
     JAX_PLATFORMS=cpu TPU_MPC_PALLAS=0 python tests/gpu/make_torch_goldens.py [name ...]
 
 (from the repository root; names: gg20_blame_768, gg18_768, lindell17_1024,
-pdl_576, gg20_slice_768, default all; on an 8-core CPU machine 299 s wall
+pdl_576, gg20_slice_768, runtime_768, kernels_ec, kernels_rns,
+kernels_fixed, default all; on an 8-core CPU machine 299 s wall
 for the first two, 100 s for lindell17_1024, 29 s for pdl_576 and 139 s
 for gg20_slice_768, most of it JAX compilation and the reference's keygen).
 pytest does not collect this file.  The tests run only the port against
@@ -68,6 +71,21 @@ range_proof_ni prove/verify on x < q/3 (seed 5) and on x = q - 5 (seed 6,
 the soundness case: verify rejects), the zk_pdl flow (seed 7: every
 message and state field, range_ok, prover_ok, the verifier's verdict) and
 the flow with Q = (x + 1) G (seed 8: the verdict rejects).
+
+tests/gpu/fixtures/runtime_768.json: the runtime's in-process replay (the
+seeds of tests/test_runtime.py): run_simulation over Gg20Keygen(i, 1, 3,
+SessionRng(100 + i), 768) for i = 1, 2, 3, then Gg20OfflineStage for s_l =
+[0, 2] from SessionRng(201) and SessionRng(202), partial_sig_local and
+sign_manual of m = sha256(b"sm message"); every delivered Msg.to_json()
+string in delivery order, every output (wire-encoded), the partial
+signatures, the signature, and party 1's LocalKey file as
+runtime.cli.save_local_key writes it.
+
+tests/gpu/fixtures/kernels_ec.json, kernels_rns.json, kernels_fixed.json:
+the reference's kernels on the seeded inputs of the kernel tests that held
+the port against them live (see kernels_ec, kernels_rns and kernels_fixed
+below); each records its inputs beside the outputs, and the tests check
+that their own inputs still equal them.
 """
 
 from __future__ import annotations
@@ -404,9 +422,198 @@ def pdl576() -> dict:
     return out
 
 
+RUNTIME_BITS = 768
+RUNTIME_S_L = [0, 2]
+M_RUNTIME = int.from_bytes(hashlib.sha256(b"sm message").digest(), "big")
+
+
+def _recorder(log: list):
+    """run_simulation's tamper hook that records every delivered message."""
+    def rec(msg):
+        log.append(msg.to_json())
+        return msg
+    return rec
+
+
+def runtime768() -> dict:
+    import tempfile
+
+    from tpu_mpc.runtime import cli
+    from tpu_mpc.runtime.gg20_keygen_sm import Gg20Keygen
+    from tpu_mpc.runtime.gg20_sign_sm import Gg20OfflineStage, partial_sig_local, sign_manual
+    from tpu_mpc.runtime.state_machine import run_simulation
+    from tpu_mpc.runtime.wire import encode_value
+    from tpu_mpc.utils.rng import SessionRng
+
+    t = time.perf_counter()
+    kg_msgs, off_msgs = [], []
+    kg = [Gg20Keygen(i, 1, 3, SessionRng(100 + i), paillier_bits=RUNTIME_BITS)
+          for i in (1, 2, 3)]
+    outs = run_simulation(kg, tamper=_recorder(kg_msgs))
+    print(f"  runtime keygen {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    sms = [Gg20OfflineStage(1, RUNTIME_S_L, outs[0], SessionRng(201)),
+           Gg20OfflineStage(2, RUNTIME_S_L, outs[2], SessionRng(202))]
+    off = run_simulation(sms, tamper=_recorder(off_msgs))
+    print(f"  runtime offline {time.perf_counter() - t:.1f} s", flush=True)
+    partials = [partial_sig_local(o, M_RUNTIME) for o in off]
+    sigs = [sign_manual(off[0], M_RUNTIME, [partials[1]]),
+            sign_manual(off[1], M_RUNTIME, [partials[0]])]
+    assert sigs[0] == sigs[1] and sigs[0]["valid"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "local1.json")
+        cli.save_local_key(path, outs[0])
+        with open(path) as f:
+            key_file = f.read()
+    return {"bits": RUNTIME_BITS, "t": 1, "n": 3, "keygen_seeds": [101, 102, 103],
+            "s_l": RUNTIME_S_L, "offline_seeds": [201, 202], "m": str(M_RUNTIME),
+            "keygen_msgs": kg_msgs, "keygen_outputs": [encode_value(o) for o in outs],
+            "offline_msgs": off_msgs, "offline_outputs": [encode_value(o) for o in off],
+            "partials": [str(v) for v in partials], "sig": encode_value(sigs[0]),
+            "local_key_1": key_file}
+
+
+# ---- the kernel tests' reference outputs ----------------------------------
+
+def _test_module(name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pts_json(pts):
+    return [None if p is None else [str(p[0]), str(p[1])] for p in pts]
+
+
+def kernels_ec() -> dict:
+    """tests/gpu/test_torch_ec.py: the reference's XLA path on the inputs of
+    test_against_reference_xla_path, and its K3 Pallas kernel in interpret
+    mode on those of test_k3_plain_equals_reference_pallas_interpret."""
+    import numpy as np
+
+    from tpu_mpc.ec import pallas_ec as jpe
+    from tpu_mpc.ec import secp256k1 as jec
+    from tpu_mpc.host import ec as hec
+
+    te = _test_module("test_torch_ec")
+    sc = lambda ks: jec.sc_from_ints(np.asarray(ks, dtype=object))
+    host = jec.points_to_host_list
+    os.environ["TPU_MPC_PALLAS"] = "0"
+    ks, kb = te._scalars(10, edge=(0,)), te._scalars(11)
+    pts = te._points(12, edge=(None,))
+    P, G = jec.points_from_host(pts), jec.points_from_host([hec.G] * te.B)
+    xla = {"ks": [str(k) for k in ks], "kb": [str(k) for k in kb], "pts": _pts_json(pts),
+           "scalar_mul": _pts_json(host(jec.scalar_mul(sc(ks), P))),
+           "mul_generator": _pts_json(host(jec.mul_generator(sc(ks)))),
+           "dual_mul": _pts_json(host(jec.dual_mul(sc(ks), P, sc(kb), G))),
+           "glv_split": [np.asarray(t).astype(np.int64).tolist()
+                         for t in jec._glv_split(sc(ks))]}
+    os.environ["TPU_MPC_PALLAS"] = "1"
+    ks = te._scalars(13, edge=(0, 1, hec.N - 1))
+    pts = te._points(14, edge=(None,))
+    want = te._jac_rows(jpe.glv_mul(sc(ks), jec.points_from_host(pts)))
+    os.environ["TPU_MPC_PALLAS"] = "0"
+    return {"xla": xla, "k3_interpret": {"ks": [str(k) for k in ks], "pts": _pts_json(pts),
+                                         "jac": want.tolist()}}
+
+
+def kernels_rns() -> dict:
+    """tests/gpu/test_torch_rns.py: the reference's XLA RNS path (reduce_axis0
+    off and on) on the inputs of test_k1_plain_matches_reference_xla, and
+    its Pallas dispatch in interpret mode on those of
+    test_k1_plain_matches_reference_pallas_interpret."""
+    import numpy as np
+
+    from tpu_mpc.core import rns as jrns
+
+    tr = _test_module("test_torch_rns")
+    out = {"xla": {}}
+    os.environ["TPU_MPC_PALLAS"] = "0"
+    for reduce_axis0 in (False, True):
+        rng = np.random.default_rng(21)
+        bits, S = 768, 4
+        ns = tr._moduli(rng, bits, 1)
+        b = np.asarray([[tr._rand(rng, bits) % int(ns[0])] for _ in range(S)], dtype=object)
+        e = np.asarray([[tr._rand(rng, 64)] for _ in range(S)], dtype=object)
+        want = jrns.rns_exp_dispatch(jrns.RnsCtx.from_ints(ns, bits), ns, b, e, 64,
+                                     reduce_axis0=reduce_axis0).ints()
+        out["xla"][str(reduce_axis0)] = {"ns": strs(ns), "b": strs(b), "e": strs(e),
+                                         "shape": list(np.shape(want)), "want": strs(want)}
+    os.environ["TPU_MPC_PALLAS"] = "1"
+    rng = np.random.default_rng(31)
+    ns = tr._moduli(rng, 256, 3)
+    b = np.asarray([tr._rand(rng, 256) >> 1 for _ in range(3)], dtype=object)
+    e = np.asarray([tr._rand(rng, 16) | 1 for _ in range(3)], dtype=object)
+    want = jrns.rns_exp_dispatch(jrns.RnsCtx.from_ints(ns, 256), ns, b, e, 16).ints()
+    os.environ["TPU_MPC_PALLAS"] = "0"
+    out["interpret"] = {"ns": strs(ns), "b": strs(b), "e": strs(e), "want": strs(want)}
+    return out
+
+
+def table_digest(a) -> str:
+    """sha256 of an integer array's int64 little-endian bytes."""
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a).astype("<i8")).tobytes()).hexdigest()
+
+
+def kernels_fixed() -> dict:
+    """tests/gpu/test_torch_fixed.py::test_fixed_base_equals_reference, per
+    width: the reference's table build (as a digest of its residues: the
+    768-bit tables hold 77k values), its XLA fixed-product path for G = 3
+    and G = 1, and at 256 bits its Pallas dispatch with a gmap in interpret
+    mode; each on the test's seeded inputs."""
+    import numpy as np
+
+    from tpu_mpc.core import rns as jrns
+
+    tf = _test_module("test_torch_fixed")
+    out = {}
+    for bits in (256, 768):
+        os.environ["TPU_MPC_PALLAS"] = "0"
+        rng = np.random.default_rng(bits + 1)
+        ns3 = tf._moduli(rng, bits, 3).reshape(1, 3)
+        bases3 = np.asarray([[[tf._rand(rng, bits + 8) for _ in range(3)]] for _ in range(2)],
+                            dtype=object)
+        jt3 = jrns.rns_make_tables(jrns.RnsCtx.from_ints(ns3, bits), ns3, bases3, 64, bits)
+        refs = [np.concatenate([np.asarray(tA), np.asarray(tB), np.asarray(tr)[..., None]], -1)
+                for tA, tB, tr in jt3]
+        run = {"ns3": strs(ns3), "bases3": strs(bases3),
+               "tables": [{"shape": list(r.shape), "sha256": table_digest(r)} for r in refs],
+               "groups": []}
+        S = 2
+        for G in (3, 1):
+            ns = ns3[:, :G]
+            jt = [tuple(c[:, :, :, :G] for c in t) for t in jt3]
+            e1 = np.asarray([[tf._rand(rng, 16) for _ in range(G)] for _ in range(S)],
+                            dtype=object)
+            e2 = np.asarray([[tf._rand(rng, 64) for _ in range(G)] for _ in range(S)],
+                            dtype=object)
+            e1[0, 0] = 0
+            want = jrns.rns_fixed_prod_dispatch(jrns.RnsCtx.from_ints(ns, bits), ns, jt,
+                                                [e1, e2], [16, 64], bits).ints()
+            run["groups"].append({"G": G, "e1": strs(e1), "e2": strs(e2), "want": strs(want)})
+        if bits == 256:
+            os.environ["TPU_MPC_PALLAS"] = "1"
+            nsG = ns3[0]
+            gmap = np.asarray([0, 2, 1, 2])
+            n_s = np.asarray([int(nsG[i]) for i in gmap], dtype=object)
+            e = np.asarray([5, 200, 77, 255], dtype=object)
+            want = jrns.rns_fixed_prod_dispatch(jrns.RnsCtx.from_ints(n_s, bits), n_s, jt3[:1],
+                                                [e], [8], bits, gmap=gmap).ints()
+            run["gmap"] = {"gmap": gmap.tolist(), "e": strs(e), "want": strs(want)}
+            os.environ["TPU_MPC_PALLAS"] = "0"
+        out[str(bits)] = run
+    return out
+
+
 GOLDENS = {"gg20_blame_768": (gg20_blame, "1"), "gg18_768": (gg18, "1"),
            "lindell17_1024": (lindell17, "0"), "pdl_576": (pdl576, "0"),
-           "gg20_slice_768": (gg20_slice, "0")}
+           "gg20_slice_768": (gg20_slice, "0"), "runtime_768": (runtime768, "0"),
+           "kernels_ec": (kernels_ec, "0"), "kernels_rns": (kernels_rns, "0"),
+           "kernels_fixed": (kernels_fixed, "0")}
+
 
 
 def main() -> int:
@@ -430,7 +637,10 @@ def main() -> int:
         t = time.perf_counter()
         obj = fn()
         with open(os.path.join(OUT, name + ".json"), "w") as f:
-            json.dump(obj, f, indent=1)
+            if name.startswith("kernels_"):
+                json.dump(obj, f, separators=(",", ":"))
+            else:
+                json.dump(obj, f, indent=1)
             f.write("\n")
         print(f"{name}.json: {time.perf_counter() - t:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,7 +1,12 @@
 """K3, K4, K5 of the port (GLV ladder, comb, affine) through their plain
 versions on the CPU, held exactly against the host EC oracle (infinity and
 k = 0 included), against the reference's XLA path at a batch under 128, and
-once per kernel against the reference's Pallas kernel in interpret mode."""
+once per kernel against the reference's Pallas kernel in interpret mode
+(K3 and the XLA path through the reference's outputs committed in
+fixtures/kernels_ec.json, K4 and K5 live)."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -89,6 +94,18 @@ def test_glv_split_recombines():
 
 # ---- against the reference -------------------------------------------------
 
+KERNELS_EC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                          "kernels_ec.json")
+
+
+@pytest.fixture(scope="module")
+def ref_ec():
+    """The reference's outputs on the inputs below (make_torch_goldens.py
+    kernels_ec: its XLA path, and its K3 Pallas kernel in interpret mode)."""
+    with open(KERNELS_EC) as f:
+        return json.load(f)
+
+
 def _ref_pts(pts):
     from tpu_mpc.ec import secp256k1 as jec
 
@@ -101,45 +118,56 @@ def _ref_sc(ks):
     return jec.sc_from_ints(np.asarray(ks, dtype=object))
 
 
-@pytest.mark.parametrize("fn", ["scalar_mul", "mul_generator", "dual_mul", "glv_split"])
-def test_against_reference_xla_path(monkeypatch, fn):
-    """Batch 8 < 128: the reference's XLA ladders; compared in affine (the
-    GLV split: its digits, exactly)."""
-    monkeypatch.setenv("TPU_MPC_PALLAS", "0")
-    from tpu_mpc.ec import secp256k1 as jec
+def _pts_json(pts):
+    return [None if p is None else [str(p[0]), str(p[1])] for p in pts]
 
+
+def _check_inputs(gold, **inputs):
+    """The golden was written from these seeded inputs (no drift)."""
+    for name, vals in inputs.items():
+        want = _pts_json(vals) if name == "pts" else [str(v) for v in vals]
+        assert gold[name] == want, f"{name} drifted from the golden's inputs"
+
+
+@pytest.mark.parametrize("fn", ["scalar_mul", "mul_generator", "dual_mul", "glv_split"])
+def test_against_reference_xla_path(ref_ec, fn):
+    """Batch 8 < 128: the reference's XLA ladders (their outputs in
+    kernels_ec.json); compared in affine (the GLV split: its digits,
+    exactly)."""
+    gold = ref_ec["xla"]
     ks, kb = _scalars(10, edge=(0,)), _scalars(11)
     pts = _points(12, edge=(None,))
-    host = jec.points_to_host_list
-    mine = tec.points_to_host_list
+    _check_inputs(gold, ks=ks, kb=kb, pts=pts)
+    mine = lambda P: _pts_json(tec.points_to_host_list(P))
     P = tec.points_from_host(pts, DEV)
     G = [hec.G] * B
     if fn == "scalar_mul":
-        assert mine(tec.scalar_mul(_sc(ks), P)) == host(jec.scalar_mul(_ref_sc(ks), _ref_pts(pts)))
+        assert mine(tec.scalar_mul(_sc(ks), P)) == gold["scalar_mul"]
     elif fn == "mul_generator":
-        assert mine(tec.mul_generator(_sc(ks))) == host(jec.mul_generator(_ref_sc(ks)))
+        assert mine(tec.mul_generator(_sc(ks))) == gold["mul_generator"]
     elif fn == "dual_mul":
         assert mine(tec.dual_mul(_sc(ks), P, _sc(kb), tec.points_from_host(G, DEV))) == \
-            host(jec.dual_mul(_ref_sc(ks), _ref_pts(pts), _ref_sc(kb), _ref_pts(G)))
+            gold["dual_mul"]
     else:
         a = [t.numpy() for t in tec._glv_split(_sc(ks))]
-        b = [np.asarray(t) for t in jec._glv_split(_ref_sc(ks))]
-        for u, v in zip(a, b):
-            assert np.array_equal(u.astype(np.int64), v.astype(np.int64))
+        assert len(a) == len(gold["glv_split"])
+        for u, v in zip(a, gold["glv_split"]):
+            assert np.array_equal(u.astype(np.int64), np.asarray(v, dtype=np.int64))
 
 
 def _jac_rows(P):
     return np.stack([np.asarray(c, dtype=np.int64) for c in P], axis=-2)
 
 
-def test_k3_plain_equals_reference_pallas_interpret():
+def test_k3_plain_equals_reference_pallas_interpret(ref_ec):
     """Same formulas in the same order: the canonical Jacobian output of the
-    plain GLV ladder equals the reference kernel's bit for bit."""
-    from tpu_mpc.ec import pallas_ec as jpe
-
+    plain GLV ladder equals the reference kernel's (run in interpret mode
+    into kernels_ec.json) bit for bit."""
+    gold = ref_ec["k3_interpret"]
     ks = _scalars(13, edge=(0, 1, Q - 1))
     pts = _points(14, edge=(None,))
-    want = _jac_rows(jpe.glv_mul(_ref_sc(ks), _ref_pts(pts)))
+    _check_inputs(gold, ks=ks, pts=pts)
+    want = np.asarray(gold["jac"], dtype=np.int64)
     got = torch.stack(list(tpe.glv_mul(_sc(ks), tec.points_from_host(pts, DEV))), -2)
     got = tec._from_rows(got, (B,))
     want_n = tec._from_rows(torch.as_tensor(want), (B,))

@@ -2,9 +2,12 @@
 of the port, on the CPU through K2's plain version, held exactly (tolerance
 0: integers) against python pow() and the reference package: its table
 build, its XLA fixed-product path (TPU_MPC_PALLAS=0), its Pallas dispatch in
-interpret mode for the gmap case, and its randomizer sampling.  Small
-widths (256 and 768 bits) and small exponent classes keep the file cheap."""
+interpret mode for the gmap case (those three through their outputs on the
+tests' seeded inputs, committed in fixtures/kernels_fixed.json), and its
+randomizer sampling.  Small widths (256 and 768 bits) and small exponent
+classes keep the file cheap."""
 
+import hashlib
 import json
 import os
 
@@ -37,11 +40,40 @@ def _pows(b, e, n):
     return np.vectorize(lambda x, y, m: pow(int(x), int(y), int(m)), otypes=[object])(b, e, n)
 
 
+KERNELS_FIXED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                             "kernels_fixed.json")
+
+
+@pytest.fixture(scope="module")
+def ref_fixed():
+    """The reference's outputs on the inputs below (make_torch_goldens.py
+    kernels_fixed: its table build, its XLA fixed-product path and its
+    Pallas dispatch in interpret mode)."""
+    with open(KERNELS_FIXED) as f:
+        return json.load(f)
+
+
+def _strs(a):
+    """Nested decimal strings, as make_torch_goldens.py writes arrays."""
+    return np.vectorize(lambda v: str(int(v)), otypes=[object])(
+        np.asarray(a, dtype=object)).tolist()
+
+
+def _ints(nested):
+    return np.vectorize(int, otypes=[object])(np.asarray(nested, dtype=object))
+
+
+def _digest(a) -> str:
+    """sha256 of an integer array's int64 little-endian bytes (the golden
+    holds the reference's tables so: the 768-bit ones are 77k values)."""
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a).astype("<i8")).tobytes()).hexdigest()
+
+
 @pytest.mark.parametrize("bits", [256, 768])
-def test_fixed_base_equals_reference(monkeypatch, bits):
-    """One reference table build per width (compiling the reference's table
-    build function costs about half a minute of CPU), then every comparison that
-    needs it:
+def test_fixed_base_equals_reference(ref_fixed, monkeypatch, bits):
+    """One reference table build per width (its residues and the outputs
+    below committed in fixtures/kernels_fixed.json from the reference on
+    these seeded inputs), then every comparison that needs it:
       * tables: 2 bases over a [1, 3] batch; both builds are plain-residue
         RNS Montgomery chains in the same order, so the residues agree;
       * ModCtx.pow_fixed_prod_rns with those 2 bases at exponent classes 16
@@ -51,44 +83,41 @@ def test_fixed_base_equals_reference(monkeypatch, bits):
         groups with 8-bit exponents (the size of the reference's
         tests/test_pallas.py case), against its Pallas path in interpret
         mode; a group row out of range and an over-wide exponent raise."""
-    from tpu_mpc.core import rns as jrns
-
+    gold = ref_fixed[str(bits)]
     rng = np.random.default_rng(bits + 1)
     ns3 = _moduli(rng, bits, 3).reshape(1, 3)
     bases3 = np.asarray([[[_rand(rng, bits + 8) for _ in range(3)]] for _ in range(2)],
                         dtype=object)                               # [2, 1, 3]
-    jt3 = jrns.rns_make_tables(jrns.RnsCtx.from_ints(ns3, bits), ns3, bases3, 64, bits)
+    # the golden was written from these seeded inputs (no drift)
+    assert (_strs(ns3), _strs(bases3)) == (gold["ns3"], gold["bases3"])
     got = trns.rns_make_tables(trns.RnsCtx.from_ints(ns3, bits, "cpu"), ns3, bases3, 64, bits)
-    for (tA, tB, tr), T in zip(jt3, got):
-        ref = np.concatenate([np.asarray(tA), np.asarray(tB), np.asarray(tr)[..., None]], -1)
-        assert T.dtype == torch.int32 and tuple(T.shape) == (16, 16, 1, 3, ref.shape[-1])
-        assert np.array_equal(T.numpy().astype(np.int64), ref.astype(np.int64))
+    assert len(got) == len(gold["tables"])
+    for ref, T in zip(gold["tables"], got):
+        assert T.dtype == torch.int32 and list(T.shape) == [16, 16, 1, 3, ref["shape"][-1]]
+        assert list(T.shape) == ref["shape"] and _digest(T.numpy()) == ref["sha256"]
 
-    monkeypatch.setenv("TPU_MPC_PALLAS", "0")
     S = 2
-    for G in (3, 1):
+    for G, want_g in zip((3, 1), gold["groups"]):
         ns, h = ns3[:, :G], bases3[:, :, :G] % ns3[:, :G]
-        jt = [tuple(c[:, :, :, :G] for c in t) for t in jt3]
         e1 = np.asarray([[_rand(rng, 16) for _ in range(G)] for _ in range(S)], dtype=object)
         e2 = np.asarray([[_rand(rng, 64) for _ in range(G)] for _ in range(S)], dtype=object)
         e1[0, 0] = 0
+        assert want_g["G"] == G and (_strs(e1), _strs(e2)) == (want_g["e1"], want_g["e2"])
+        want = _ints(want_g["want"])
         port = ModCtx.from_ints(ns, bits, "cpu")
         got = port.pow_fixed_prod_rns(port.make_tables_rns(h, 64), [e1, e2], (16, 64))
-        want = jrns.rns_fixed_prod_dispatch(jrns.RnsCtx.from_ints(ns, bits), ns, jt,
-                                            [e1, e2], [16, 64], bits).ints()
         assert np.asarray(got).shape == (S, G)
-        assert np.array_equal(np.asarray(got, dtype=object), np.asarray(want, dtype=object))
+        assert np.array_equal(np.asarray(got, dtype=object), want)
         assert (got == _pows(h[0], e1, ns) * _pows(h[1], e2, ns) % ns).all()
     if bits != 256:
         return
 
-    monkeypatch.setenv("TPU_MPC_PALLAS", "1")
     nsG, g = ns3[0], bases3[0, 0] % ns3[0]
     gmap = np.asarray([0, 2, 1, 2])
     n_s = np.asarray([int(nsG[i]) for i in gmap], dtype=object)
     e = np.asarray([5, 200, 77, 255], dtype=object)
-    want = jrns.rns_fixed_prod_dispatch(jrns.RnsCtx.from_ints(n_s, bits), n_s, jt3[:1], [e],
-                                        [8], bits, gmap=gmap).ints()
+    assert gold["gmap"]["gmap"] == gmap.tolist() and gold["gmap"]["e"] == _strs(e)
+    want = _ints(gold["gmap"]["want"])
     tt = trns.rns_make_tables(trns.RnsCtx.from_ints(nsG, bits, "cpu"), nsG, g[None], 8, bits)
     call = lambda ex, gm: trns.rns_fixed_prod_dispatch(
         trns.RnsCtx.from_ints(n_s, bits, "cpu"), n_s, tt, [ex], [8], bits, gmap=gm).ints()

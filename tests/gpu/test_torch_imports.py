@@ -1,5 +1,6 @@
-"""The port stands alone: importing tpu_mpc_torch pulls in neither jax nor
-any tpu_mpc module, and the default device is the card (no silent CPU)."""
+"""The port stands alone: importing tpu_mpc_torch (every module, the runtime's
+CLIs included) pulls in neither jax, nor any tpu_mpc module, nor the
+cryptography package, and the default device is the card (no silent CPU)."""
 
 import os
 import subprocess
@@ -15,7 +16,7 @@ import tpu_mpc_torch
 for m in pkgutil.walk_packages(tpu_mpc_torch.__path__, "tpu_mpc_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith("jax.") or k == "tpu_mpc" or k.startswith("tpu_mpc."))
+             if k.split(".")[0] in ("jax", "tpu_mpc", "cryptography"))
 print("BAD", bad)
 """
 
@@ -77,6 +78,24 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         ec.generator((2,))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_without_a_card_fails_instead_of_running_on_the_cpu(tmp_path):
+    """`cli keygen` without --device asks for the card: with none it exits
+    non-zero with resolve_device's message before it touches the relay."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-m", "tpu_mpc_torch.runtime.cli", "keygen",
+                          "-a", "http://127.0.0.1:9", "-i", "1", "-t", "1", "-n", "3",
+                          "-o", str(tmp_path / "local1.json"), "--paillier-bits", "768"],
+                         env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr, out.stderr
+    assert "Traceback" not in out.stderr and not (tmp_path / "local1.json").exists()
 
 
 def test_kernel_build_targets_hopper():

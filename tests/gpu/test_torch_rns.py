@@ -1,7 +1,11 @@
 """K1 (the RNS modexp) and ModCtx of the port, on the CPU through K1's plain
 version, held exactly (tolerance 0: integers) against python pow() and the
 reference package: its XLA RNS path (TPU_MPC_PALLAS=0) with reduce_axis0 on
-and off, and once its Pallas dispatch in interpret mode."""
+and off, and once its Pallas dispatch in interpret mode (their outputs on
+the tests' seeded inputs committed in fixtures/kernels_rns.json)."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -134,34 +138,55 @@ def test_rns_params_equal_reference():
     assert (trns.RnsParams(2048).K, trns.RnsParams(4096).K) == (130, 258)
 
 
-@pytest.mark.parametrize("reduce_axis0", [False, True])
-def test_k1_plain_matches_reference_xla(monkeypatch, reduce_axis0):
-    monkeypatch.setenv("TPU_MPC_PALLAS", "0")
-    from tpu_mpc.core import rns as jrns
+KERNELS_RNS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "kernels_rns.json")
 
+
+@pytest.fixture(scope="module")
+def ref_rns():
+    """The reference's outputs on the inputs below (make_torch_goldens.py
+    kernels_rns: its XLA RNS path, and its Pallas dispatch in interpret
+    mode)."""
+    with open(KERNELS_RNS) as f:
+        return json.load(f)
+
+
+def _strs(a):
+    """Nested decimal strings, as make_torch_goldens.py writes arrays."""
+    return np.vectorize(lambda v: str(int(v)), otypes=[object])(
+        np.asarray(a, dtype=object)).tolist()
+
+
+def _ints(nested):
+    return np.vectorize(int, otypes=[object])(np.asarray(nested, dtype=object))
+
+
+@pytest.mark.parametrize("reduce_axis0", [False, True])
+def test_k1_plain_matches_reference_xla(ref_rns, reduce_axis0):
+    gold = ref_rns["xla"][str(reduce_axis0)]
     rng = np.random.default_rng(21)
     bits = 768
     ns = _moduli(rng, bits, 1)
     S = 4
     b = np.asarray([[_rand(rng, bits) % int(ns[0])] for _ in range(S)], dtype=object)
     e = np.asarray([[_rand(rng, 64)] for _ in range(S)], dtype=object)
-    jctx = jrns.RnsCtx.from_ints(ns, bits)
-    want = jrns.rns_exp_dispatch(jctx, ns, b, e, 64, reduce_axis0=reduce_axis0).ints()
+    # the golden was written from these seeded inputs (no drift)
+    assert (_strs(ns), _strs(b), _strs(e)) == (gold["ns"], gold["b"], gold["e"])
+    want = _ints(gold["want"]).reshape(tuple(gold["shape"]))
     ctx = ModCtx.from_ints(ns, bits, device="cpu")
     got = ctx.pow_prod_axis0(b, e, 64) if reduce_axis0 else ctx.pow(b, e, 64)
     assert np.asarray(got).shape == np.asarray(want).shape
     assert (np.asarray(got, dtype=object) == np.asarray(want, dtype=object)).all()
 
 
-def test_k1_plain_matches_reference_pallas_interpret(monkeypatch):
-    monkeypatch.setenv("TPU_MPC_PALLAS", "1")
-    from tpu_mpc.core import rns as jrns
-
+def test_k1_plain_matches_reference_pallas_interpret(ref_rns):
+    gold = ref_rns["interpret"]
     rng = np.random.default_rng(31)
     ns = _moduli(rng, 256, 3)
     b = np.asarray([_rand(rng, 256) >> 1 for _ in range(3)], dtype=object)
     e = np.asarray([_rand(rng, 16) | 1 for _ in range(3)], dtype=object)
-    want = jrns.rns_exp_dispatch(jrns.RnsCtx.from_ints(ns, 256), ns, b, e, 16).ints()
+    assert (_strs(ns), _strs(b), _strs(e)) == (gold["ns"], gold["b"], gold["e"])
+    want = _ints(gold["want"])
     got = trns.rns_exp_dispatch(trns.RnsCtx.from_ints(ns, 256, "cpu"), ns, b, e, 16).ints()
     assert (got == want).all() and (got == _pows(b, e, ns)).all()
 

@@ -30,9 +30,11 @@ depend on the number of workers.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import secrets
+import sys
 
 _M64 = (1 << 64) - 1
 _SEED_PRIME = 0xA5A5A5A5DEADBEEF
@@ -253,8 +255,27 @@ def _fan_out(fn, bits: int, count: int, rng, workers):
     # seed each.  They are spawned, not forked, since the caller may run
     # threads (torch, CUDA) that a forked child would inherit half-locked;
     # a spawned worker imports this module and nothing else of the package.
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+    with _bare_main(), ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         return list(ex.map(fn, jobs))
+
+
+@contextlib.contextmanager
+def _bare_main():
+    """A spawned worker first runs the parent's __main__ module again, found
+    by its __spec__ or __file__: for a party process started with `python -m
+    tpu_mpc_torch.runtime.cli` that is the package and torch, seconds a
+    worker.  The jobs need only this module, so both are hidden while the
+    workers start (they start inside the pool's block)."""
+    main = sys.modules["__main__"]
+    saved = {k: main.__dict__[k] for k in ("__spec__", "__file__") if k in main.__dict__}
+    main.__spec__ = None
+    main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        main.__dict__.pop("__spec__", None)
+        main.__dict__.update(saved)
 
 
 def gen_primes_parallel(bits: int, count: int, rng: random.Random | None = None,
