@@ -58,7 +58,7 @@ Phases (any failure exits non-zero and prints no result line):
              kernels and take the G = 8 batch verification with no
              per-session fallback; every signature verifies under its own
              group's y.
-  6. blame   GG20 identifiable aborts on the slice's tables key (S = 64,
+  6. blame   GG20 identifiable aborts on the slice's tables key (S = 32,
              signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
              (step 6) or the committed g_gamma ("decommit") of per-session
              corruption matrices, a clean offline_stage with s_i corrupted
@@ -99,12 +99,23 @@ Phases (any failure exits non-zero and prints no result line):
              shares reconstruct, equal valid low-s signatures).  Every child
              must exit 0 on the card with K1, K3, K4, K5 launched; prints the
              walls and one process's import-torch-and-CUDA-context time.
+ 11. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
+             under sessions_mesh() (every visible card), under a mesh that
+             repeats the card 4 times, and over two real cards where there
+             are two: a warm-up pass holding every K1-K5 piece shape against
+             its plain version and a timed pass, each with (r, s, recid)
+             equal, bit for bit, to the slice's unsharded pass, the timed
+             one logged beside the slice's; then a one-rank NCCL group in this
+             process (TPU_MPC_TORCH_DISTRIBUTED=1): ModCtx.pow and
+             mul_generator + to_affine over the mesh of ranks against python
+             pow and the host EC; prints the passes' seconds and launches.
 Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
 launches_multitenant: the first timed multi-tenant pass; launches_blame:
 the blame phase; launches_gg18: the timed GG18 [0, 1] pass;
 launches_lindell17: the lindell17 phase; launches_runtime: the runtime
-phase's replay), the card's name and power limit,
+phase's replay; launches_sharding: the timed pass under the 4-entry mesh,
+one launch a piece), the card's name and power limit,
 and last {"ok": true, "device": {...}}.  It imports nothing of jax or of
 the reference package tpu_mpc.
 """
@@ -122,9 +133,11 @@ import sys
 import time
 
 S_SESSIONS = 128
+SLICE_SEED = 0xC41B                  # the slice's SessionRng seed
 # blame's sessions: its host Paillier opens (~0.24 s each on the card's host)
-# grow with S, so it runs at half the slice's S to keep the whole run in time
-BLAME_S = 64
+# grow with S, so it runs at a quarter of the slice's S to keep the whole
+# run in time (64 until the sharding phase came)
+BLAME_S = 32
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
 EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4/K5 lane counts off their 8-, 16-, 32-lane blocks
@@ -799,14 +812,16 @@ CONFIGS = {"uniform": "0", "tables": "1"}     # the value of ENC_ENV per configu
 
 
 def _wrappers():
-    """kernel -> (module, wrapper name, plain version taking the same args)."""
+    """kernel -> (module, name, plain version taking the same args) of the
+    function that launches one piece of a wrapper call (the whole call when
+    no sessions mesh is active)."""
     from tpu_mpc_torch.core import pallas_rns as pr
     from tpu_mpc_torch.ec import pallas_ec as pe
 
-    return {"K1": (pr, "exp_call", pr.exp_plain), "K2": (pr, "fixed_call", pr.fixed_plain),
-            "K3": (pe, "ladder_call", pe.ladder_plain),
-            "K4": (pe, "comb_call", lambda *a: pe.comb_plain(*a[:2])),
-            "K5": (pe, "affine_call", pe.affine_plain)}
+    return {"K1": (pr, "exp_launch", pr.exp_plain), "K2": (pr, "fixed_launch", pr.fixed_plain),
+            "K3": (pe, "ladder_launch", pe.ladder_plain),
+            "K4": (pe, "comb_launch", lambda *a: pe.comb_plain(*a[:2])),
+            "K5": (pe, "affine_launch", pe.affine_plain)}
 
 
 def launch_shape(name, a, kw) -> str:
@@ -824,7 +839,8 @@ def launch_shape(name, a, kw) -> str:
 
 
 class Instrument:
-    """Patches the kernel wrappers for the life of a `with` block.
+    """Patches the kernels' piece launchers (_wrappers) for the life of a
+    `with` block.
 
     hold: the kernels whose first call at each launch shape not yet in
     `held` is held exactly against the plain version on the same inputs
@@ -1036,7 +1052,9 @@ def run_slice(dev, material, host_profile: bool = False):
     counts are set to 0 just before each timed pass and read just after it;
     the tables passes must launch all five kernels, the uniform ones every
     kernel but K2.  Returns (the first timed tables pass's launches, the
-    tables key at S = 128, its 1-session key)."""
+    tables key at S = 128, its 1-session key, the (r, s, recid) of the
+    tables warm-up pass, the first under a fresh SessionRng(SLICE_SEED), and
+    the first timed tables pass's seconds)."""
     import torch
 
     from tpu_mpc_torch import kernels
@@ -1055,7 +1073,7 @@ def run_slice(dev, material, host_profile: bool = False):
                 and (key1.ek.enc_tab_h is not None) == (flag == "1"),
                 f"slice[{cfg}]: the key's tables do not match the configuration")
         keys[cfg], key1s[cfg] = gg20.tile_key(key1, S_SESSIONS), key1
-        rngs[cfg] = SessionRng(0xC41B)
+        rngs[cfg] = SessionRng(SLICE_SEED)
         log(f"slice[{cfg}]: the keygen's bench key loaded in {dt:.2f} s"
             + (" (h1/h2 and randomizer tables built)" if flag == "1" else "")
             + f", tiled to S={S_SESSIONS}")
@@ -1071,14 +1089,15 @@ def run_slice(dev, material, host_profile: bool = False):
         dt = time.perf_counter() - t
         require(off.ok.all(), f"slice[{cfg}]: offline stage failed: {off.debug_masks}")
         require(sig.sig_valid.all() and sig.ok.all(), f"slice[{cfg}]: a signature failed")
-        return dt, t_off
+        return dt, t_off, sig
 
     # warm-up passes: the first K3/K4/K5 call at each shape of the main path
     # is held exactly against its plain version on that call's inputs
-    held = set()
+    held, first = set(), {}
     for cfg in CONFIGS:
         with Instrument(held, hold=("K3", "K4", "K5")):
-            dt, t_off = one_pass(cfg)
+            dt, t_off, sig = one_pass(cfg)
+        first[cfg] = _sig_ints(sig)
         log(f"slice[{cfg}]: warm-up pass {dt:.2f} s (offline {t_off:.2f} s), "
             f"{S_SESSIONS} signatures verify; K3/K4/K5 exact against plain at the main "
             f"path's shapes so far: {', '.join(sorted(held))}")
@@ -1088,7 +1107,7 @@ def run_slice(dev, material, host_profile: bool = False):
         torch.cuda.synchronize()
         kernels.reset_launches()
         with Instrument(held) as inst:
-            dt, t_off = one_pass(cfg)
+            dt, t_off, _ = one_pass(cfg)
         launches = dict(kernels.LAUNCHES)
         busy = inst.busy()
         tot = sum(busy.get(k, 0.0) for k in launches)
@@ -1122,7 +1141,13 @@ def run_slice(dev, material, host_profile: bool = False):
         log("slice[tables]: host profile of one more pass (cProfile, by own time)\n"
             + buf.getvalue())
     # the main path is the tables configuration: its first timed pass
-    return next(r[1] for r in runs if r[0] == "tables"), keys["tables"], key1s["tables"]
+    t_launches, t_dt = next((r[1], r[3]) for r in runs if r[0] == "tables")
+    return t_launches, keys["tables"], key1s["tables"], first["tables"], t_dt
+
+
+def _sig_ints(sig):
+    """(r, s, recid) of a pass's signatures as lists of ints."""
+    return tuple([int(v) for v in a] for a in (sig.r, sig.s, sig.recid))
 
 
 # --------------------------------------------------------------------------
@@ -1247,7 +1272,7 @@ def _spec(step, S) -> list:
 
 
 def run_blame(dev, key, held: set):
-    """GG20 identifiable aborts on the slice's tables key (S = 64, signers
+    """GG20 identifiable aborts on the slice's tables key (S = BLAME_S, signers
     [0, 1]): one offline_stage per corruption step (5, 6, "decommit"), each
     with a per-session matrix (session b on pattern b % 4 of [[], [0], [1],
     [0, 1]], b % 3 of [[], [0], [1]] for "decommit"), then its blame; a clean
@@ -1891,6 +1916,151 @@ def run_runtime_processes(repo, work) -> dict:
     return walls
 
 
+# --------------------------------------------------------------------------
+# phase 11: sessions-axis sharding
+# --------------------------------------------------------------------------
+
+SHARD_ENTRIES = 4                    # the mesh that repeats the one card
+RANK_LANES = 16                      # lanes of the one-rank NCCL group's checks
+
+
+def run_sharding(dev, key, want, slice_dt) -> dict:
+    """GG20 tables passes of the slice's key at S = 128 under SessionRng
+    (SLICE_SEED) under sessions_mesh() (every visible card), under a mesh
+    that repeats this card SHARD_ENTRIES times, and, where the machine has
+    two cards or more, a mesh over two real cards.  Under each mesh a
+    warm-up pass holds every K1-K5 piece shape against its plain version on
+    its first call, then a timed pass, counts set to 0 just before it and
+    read just after, must launch all five kernels; every pass's (r, s,
+    recid) must equal `want`, the slice's unsharded tables warm-up pass's,
+    bit for bit.  The timed passes are logged beside `slice_dt`, the slice's
+    first unsharded timed tables pass.  Returns the timed pass's launches
+    under the repeated mesh."""
+    import torch
+
+    from tpu_mpc_torch import kernels, sharding
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.utils.rng import SessionRng
+
+    os.environ[ENC_ENV] = "1"
+    S = key.S
+
+    def one_pass(label):
+        t = time.perf_counter()
+        off = gg20.offline_stage(key, [0, 1], SessionRng(SLICE_SEED))
+        sig = gg20.sign_online(off, MSG)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        require(off.ok.all() and sig.sig_valid.all() and sig.ok.all(),
+                f"sharding[{label}]: a check or a signature failed")
+        return _sig_ints(sig), dt
+
+    meshes = [("sessions_mesh()", sharding.sessions_mesh()),
+              (f"{SHARD_ENTRIES} x {dev}", sharding.sessions_mesh(devices=[dev] * SHARD_ENTRIES))]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("2 cards", sharding.sessions_mesh(devices=["cuda:0", "cuda:1"])))
+    else:
+        log(f"sharding: one card visible (torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}): no mesh over two real cards")
+    held, out = set(), None
+    for label, mesh in meshes:
+        with sharding.use_mesh(mesh):
+            with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+                got, dt_w = one_pass(label)
+            require(got == want, f"sharding[{label}]: the warm-up pass's (r, s, recid) differ "
+                    "from the unsharded pass's")
+            warm_holds = list(inst.new_holds)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with Instrument(held) as inst:
+                got, dt = one_pass(label)
+            launches = dict(kernels.LAUNCHES)
+        require(got == want, f"sharding[{label}]: (r, s, recid) differ from the unsharded pass's")
+        missing = [k for k in launches if launches[k] == 0]
+        require(not missing, f"sharding[{label}]: kernels not launched: {missing}")
+        require(set(inst.by_shape) <= held, f"sharding[{label}]: piece shapes never held "
+                f"against plain: {sorted(set(inst.by_shape) - held)}")
+        log(f"sharding[{label}] {mesh}: (r, s, recid) of all {S} sessions equal the unsharded "
+            f"pass's; warm-up {dt_w:.2f} s (holds included), timed pass {dt:.2f} s, "
+            f"{S / dt:.2f} sig/s (the slice's unsharded timed pass: {slice_dt:.2f} s); "
+            + _kernel_summary(inst, launches))
+        log(f"sharding[{label}]: piece shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; "
+            f"held against plain in its warm-up: {', '.join(warm_holds)}")
+        if label.startswith(f"{SHARD_ENTRIES} x"):
+            out = launches
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_sharding_ranks(dev):
+    """A one-rank NCCL group in this process (TPU_MPC_TORCH_DISTRIBUTED=1,
+    WORLD_SIZE=1, a free port): under sessions_mesh(), now a mesh over the
+    ranks, a 2048-bit ModCtx.pow and mul_generator + to_affine over
+    RANK_LANES lanes through the rank path (the input digest's all-gather,
+    the piece, the output's all-gather) equal python pow and the host EC;
+    then the group is destroyed."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch import kernels, sharding
+    from tpu_mpc_torch.core.limbs import batch_from_limbs
+    from tpu_mpc_torch.core.modctx import ModCtx
+    from tpu_mpc_torch.core.rns import RnsParams
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+
+    env = {"TPU_MPC_TORCH_DISTRIBUTED": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rnd = random.Random(0x4A11)
+    t = time.perf_counter()
+    try:
+        require(sharding.maybe_init_distributed(), "sharding ranks: no process group")
+        backend = torch.distributed.get_backend()
+        require(backend == "nccl", f"sharding ranks: backend {backend}, not nccl")
+        mesh = sharding.sessions_mesh()
+        require(mesh.size == 1 and mesh.group is not None and mesh.local == dev,
+                f"sharding ranks: {mesh} is not a mesh over one rank on {dev}")
+        mods = _odd_moduli(rnd, 2048, RANK_LANES, RnsParams(2048))
+        base = [rnd.getrandbits(2048) % m for m in mods]
+        expo = [rnd.getrandbits(2048) for _ in range(RANK_LANES)]
+        ks = [rnd.randrange(1, hec.N) for _ in range(RANK_LANES)]
+        obj = lambda v: np.asarray(v, dtype=object)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with sharding.use_mesh(mesh):
+            got = ModCtx.from_ints(obj(mods), 2048, dev).pow(obj(base), obj(expo), 2048)
+            x, y, inf = ec.to_affine(ec.mul_generator(ec.sc_from_ints(obj(ks), dev)))
+        launches = dict(kernels.LAUNCHES)
+        require([int(g) for g in got] == [pow(b, e, m) for b, e, m in zip(base, expo, mods)],
+                "sharding ranks: ModCtx.pow over the NCCL group != python pow")
+        xs, ys = batch_from_limbs(x.cpu().numpy()), batch_from_limbs(y.cpu().numpy())
+        require(not inf.any().item() and [(int(a), int(b)) for a, b in zip(xs, ys)]
+                == [hec.mul(k) for k in ks], "sharding ranks: mul_generator != the host EC")
+        require(launches["K1"] >= 1 and launches["K4"] >= 1 and launches["K5"] >= 1,
+                f"sharding ranks: K1, K4 and K5 must launch: {launches}")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"sharding ranks: a one-rank {backend} group in this process, {mesh}: 2048-bit "
+        f"ModCtx.pow and mul_generator + to_affine over {RANK_LANES} lanes equal python pow "
+        f"and the host EC; launches {json.dumps(launches)}; {time.perf_counter() - t:.2f} s "
+        f"with the group's set-up; group destroyed")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1938,8 +2108,8 @@ def main() -> int:
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
     res16, material, kg_launches = run_keygen(dev, repo)
-    launches, key128, key1 = run_slice(dev, material,
-                                       host_profile="--host-profile" in sys.argv[1:])
+    launches, key128, key1, slice_sig, slice_dt = run_slice(
+        dev, material, host_profile="--host-profile" in sys.argv[1:])
     mt_launches = run_multitenant(dev, res16)
     held = set()
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
@@ -1952,6 +2122,10 @@ def main() -> int:
     work = os.path.join(repo, "build", "runtime_smoke", str(os.getpid()))
     os.makedirs(work, exist_ok=True)
     run_runtime_processes(repo, work)
+    t_shard = time.perf_counter()
+    sh_launches = run_sharding(dev, key128, slice_sig, slice_dt)
+    run_sharding_ranks(dev)
+    log(f"sharding: the phase {time.perf_counter() - t_shard:.1f} s")
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -1973,6 +2147,7 @@ def main() -> int:
             "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
             "launches_lindell17": l17_launches[name],
             "launches_runtime": rt_launches[name],
+            "launches_sharding": sh_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "imad_bound_ms": r.get("imad_bound_ms", r["bound_ms"]), "library_ms": None,

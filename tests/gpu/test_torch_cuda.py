@@ -375,3 +375,140 @@ def test_lindell17_and_pdl_on_the_card_equal_the_cpu(dev):
     assert got == want
     assert all(got["ok"] + got["sig_ok"] + got["sig_valid"] + got["range_ok"]
                + got["prover_ok"] + got["final"])
+
+
+def test_sharded_launches_equal_the_unsharded_launch(dev):
+    """Under a mesh of 4 entries on one card (sessions_mesh(devices=
+    ["cuda:0"] * 4)): K1 at 512 lanes (2048 bits, one modulus per lane, and
+    one shared modulus) and K3 (ns = 2 and 4), K4 and K5 at 256 lanes each
+    launch 4 pieces, and the gathered output equals the unsharded launch
+    exactly."""
+    from tpu_mpc_torch import kernels, sharding
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsParams
+    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+
+    import math
+
+    mesh = sharding.sessions_mesh(devices=[dev] * 4)
+    rnd = random.Random(10)
+    bits, B = 2048, 512
+    par = RnsParams(bits)
+    ns = []
+    while len(ns) < B:
+        v = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
+        if math.gcd(v, par.MA * par.MB) == 1:
+            ns.append(v)
+    ns = np.asarray(ns, dtype=object)
+    b = np.asarray([rnd.getrandbits(bits) % int(n) for n in ns], dtype=object)
+    e = np.asarray([rnd.getrandbits(bits) for _ in range(B)], dtype=object)
+    x = torch.as_tensor(batch_to_limbs(b, par.Lin), device=dev)
+    ew = torch.as_tensor(pr._pack_words(batch_to_limbs(e, bits // 16)), device=dev)
+    rows = RnsCtx.from_ints(ns, bits, dev).rows
+    x0 = torch.as_tensor(batch_to_limbs(
+        np.asarray([int(v) % int(ns[0]) for v in b], dtype=object), par.Lin), device=dev)
+    pts = _comb_points(dev, rnd, 512)
+    ks = ec.sc_from_ints(np.asarray([rnd.randrange(hec.N) for _ in range(512)], dtype=object),
+                         dev)
+    DG, NEG = pe._glv_prep(ks)
+    tab, planes = pe._comb8_for(hec.G, dev)
+    dg = pe._comb_digits(ks[:256])
+    cases = {
+        "K1": [(pr.exp_call, (x, ew, rows, bits, emit)) for emit in (True, False)]
+        + [(pr.exp_call, (x0, ew, rows[:1], bits, True))],
+        "K3": [(pe.ladder_call, (pts[:256, None], DG[:256], NEG[:256])),
+               (pe.ladder_call, (torch.stack([pts[:256], pts[256:]], 1),
+                                 torch.cat([DG[:256], DG[256:]], 1),
+                                 torch.cat([NEG[:256], NEG[256:]], 1)))],
+        "K4": [(pe.comb_call, (dg, tab, planes))],
+        "K5": [(pe.affine_call, (pts[:256],))],
+    }
+    for k, runs in cases.items():
+        for fn, args in runs:
+            want = fn(*args)
+            n0 = kernels.LAUNCHES[k]
+            with sharding.use_mesh(mesh):
+                got = fn(*args)
+            assert kernels.LAUNCHES[k] == n0 + 4, k
+            assert got.device == want.device and torch.equal(got, want), k
+
+
+def test_sharded_launches_copy_shared_operands_to_the_card(dev):
+    """Operands on the CPU under meshes of card entries: 2 x cuda:0 (every
+    piece is a kernel launch) and cuda:0 + cpu (one kernel piece, one plain
+    piece).  K1 with a shared modulus row, K2 with its tables and K4 with
+    its table and u8 planes: the shared operands are copied once per base
+    tensor and card (the second call finds them cached), the pieces'
+    outputs come back to the CPU, and each equals the unsharded launch on
+    the card exactly."""
+    import math
+
+    from tpu_mpc_torch import kernels, sharding
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs
+    from tpu_mpc_torch.core.modctx import ModCtx
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsParams
+    from tpu_mpc_torch.ec import pallas_ec as pe
+    from tpu_mpc_torch.ec import secp256k1 as ec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.sharding import mesh as shm
+
+    cpu = torch.device("cpu")
+    rnd = random.Random(11)
+    bits, B = 2048, 64
+    par = RnsParams(bits)
+    n0 = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
+    while math.gcd(n0, par.MA * par.MB) != 1:
+        n0 = rnd.getrandbits(bits) | 1 | (1 << (bits - 1))
+    ns = np.asarray([n0] * B, dtype=object)
+    b = np.asarray([rnd.getrandbits(bits) % n0 for _ in range(B)], dtype=object)
+    e = np.asarray([rnd.getrandbits(bits) for _ in range(B)], dtype=object)
+    rows = RnsCtx.from_ints(ns, bits, cpu).rows
+    k1 = (torch.as_tensor(batch_to_limbs(b, par.Lin)),
+          torch.as_tensor(pr._pack_words(batch_to_limbs(e, bits // 16))), rows[:1], bits, True)
+
+    kb, G, S = 768, 3, 8
+    kns = np.asarray([[rnd.getrandbits(kb) | 1 | (1 << (kb - 1)) for _ in range(G)]],
+                     dtype=object)
+    h = np.asarray([[[rnd.getrandbits(kb) % int(n) for n in kns[0]]] for _ in range(2)],
+                   dtype=object)
+    e1 = np.asarray([[rnd.getrandbits(64) for _ in range(G)] for _ in range(S)], dtype=object)
+    e2 = np.asarray([[rnd.getrandbits(256) for _ in range(G)] for _ in range(S)], dtype=object)
+    mc = ModCtx.from_ints(kns, kb, cpu)
+    cap = {}
+    real = pr.fixed_call
+    pr.fixed_call = lambda *a: cap.setdefault("a", a) and real(*a)
+    try:
+        mc.pow_fixed_prod_rns(mc.make_tables_rns(h, 256), [e1, e2], (64, 256))
+    finally:
+        pr.fixed_call = real
+    k2 = cap["a"]
+
+    ks = ec.sc_from_ints(np.asarray([rnd.randrange(hec.N) for _ in range(256)], dtype=object),
+                         cpu)
+    tab, planes = pe._comb8_for(hec.G, cpu)
+    k4 = (pe._comb_digits(ks), tab, planes)
+
+    def on_card(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(on_card(u) for u in v)
+        return v.to(dev) if isinstance(v, torch.Tensor) else v
+
+    cases = {"K1": (pr.exp_call, k1, [rows]), "K2": (pr.fixed_call, k2, k2[3]),
+             "K4": (pe.comb_call, k4, [tab, planes])}
+    for k, (fn, args, shared) in cases.items():
+        want = fn(*on_card(args)).cpu()
+        for entries, kernel_pieces in (([dev, dev], 2), ([dev, "cpu"], 1)):
+            mesh = sharding.sessions_mesh(devices=entries)
+            for _ in range(2):
+                before = kernels.LAUNCHES[k]
+                with sharding.use_mesh(mesh):
+                    got = fn(*args)
+                assert kernels.LAUNCHES[k] == before + kernel_pieces, (k, entries)
+                assert got.device == cpu and torch.equal(got, want), (k, entries)
+                bases = {id(t if t._base is None else t._base) for t in shared}
+                assert len([key for key in shm._REPLICAS if key[0] in bases]) == len(bases)
+                assert all((i, dev) in shm._REPLICAS for i in bases), k

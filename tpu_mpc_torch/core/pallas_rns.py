@@ -7,9 +7,11 @@ squarings) replaces _fixed_kernel; its source is csrc/rns_fixed.cu.  Both
 run the one Montgomery multiply of csrc/rns_field.cuh on a tile of
 LANE_TILE = 8 lanes per thread block, its base extensions as exact u8 chunk
 products on the tensor cores; the source notes say what bounds them on the
-H100 and how the design answers.  exp_call and fixed_call launch them for
-CUDA tensors (padding the batch to whole lane tiles); for CPU tensors they
-take exp_plain and fixed_plain, the same functions in PyTorch ops, which are
+H100 and how the design answers.  exp_call and fixed_call split their lanes
+over the active sessions mesh (sharding/mesh.py:launch; no mesh, one
+piece), and exp_launch and fixed_launch launch a piece: the kernel for CUDA
+tensors (padding the batch to whole lane tiles); for CPU tensors
+exp_plain and fixed_plain, the same functions in PyTorch ops, which are
 also what chip_smoke.py holds the kernels against, bit for bit.
 
 The reference's dispatch glue maps as follows: _pack_words is kept;
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..sharding import mesh as sharding
 from .limbs import batch_to_limbs, nlimbs
 from .rns import (
     WINDOW, RnsLazy, RnsParams, ctx_parts, dev_consts, rns_from_limbs, rns_from_mont_cols,
@@ -125,6 +128,14 @@ def k1_tiles(x, e, rows):
 
 
 def exp_call(x, e, rows, nbits: int, emit_planes: bool = True):
+    """K1 over the active sessions mesh (sharding/mesh.py:launch), one
+    exp_launch a piece: x and e are per lane, rows too when it has a row a
+    lane ([B, W]); a [1, W] row is shared."""
+    lanes = (0, 1) if rows.shape[0] == 1 else (0, 1, 2)
+    return sharding.launch(exp_launch, (x, e, rows, nbits, emit_planes), lanes)
+
+
+def exp_launch(x, e, rows, nbits: int, emit_planes: bool = True):
     """K1 on CUDA tensors; the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return exp_plain(x, e, rows, nbits, emit_planes)
@@ -287,6 +298,14 @@ def k2_tiles(e, grow, rows):
 
 
 def fixed_call(e, grow, rows, tables, nwins, woffs, nbits: int):
+    """K2 over the active sessions mesh (sharding/mesh.py:launch), one
+    fixed_launch a piece: e and grow are per lane, rows too when it has a row
+    a lane; the tables are shared, copied once to each device of the mesh."""
+    lanes = (0, 1) if rows.shape[0] == 1 else (0, 1, 2)
+    return sharding.launch(fixed_launch, (e, grow, rows, tables, nwins, woffs, nbits), lanes)
+
+
+def fixed_launch(e, grow, rows, tables, nwins, woffs, nbits: int):
     """K2 on CUDA tensors; the plain version on CPU tensors."""
     if e.device.type == "cpu":
         return fixed_plain(e, grow, rows, tables, nwins, woffs, nbits)

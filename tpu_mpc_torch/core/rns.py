@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_key
 from .limbs import batch_to_limbs, nlimbs
 
 WINDOW = 4
@@ -202,7 +203,7 @@ _DEV_CACHE: dict = {}
 
 def dev_consts(par: RnsParams, device) -> dict:
     """Device copies of a width's constants (uploaded once per device)."""
-    key = (par.nbits, str(device))
+    key = (par.nbits, device_key(device))
     hit = _DEV_CACHE.get(key)
     if hit is None:
         t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)

@@ -449,14 +449,16 @@ __host__ __forceinline__ bool small_block(const Dims& d) { return d.MT <= SMALL_
 // The k-tile counts built with fully unrolled k-loops: 2048 and 4096 bits.
 __host__ __forceinline__ bool unrolled_kt(const Dims& d, int kt) { return d.KT == kt; }
 
-// Shared memory a block may opt in to on this device.
+// Shared memory a block may opt in to on the current device, read once per
+// device: a sharded call launches on several cards, which may differ.
+constexpr int SMEM_CACHED_DEVICES = 64;
 __host__ inline int smem_optin() {
-  static int v = 0;
-  if (v == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
+  static int cached[SMEM_CACHED_DEVICES] = {};
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < SMEM_CACHED_DEVICES && cached[dev] != 0) return cached[dev];
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev >= 0 && dev < SMEM_CACHED_DEVICES) cached[dev] = v;
   return v;
 }
 

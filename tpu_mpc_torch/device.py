@@ -26,3 +26,12 @@ def to_numpy(t) -> "object":
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+def device_key(device) -> torch.device:
+    """The device `device` names, with its index: "cuda" is the current
+    card, so that "cuda" and "cuda:0" key one cache entry, not two."""
+    dev = device if isinstance(device, torch.device) else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

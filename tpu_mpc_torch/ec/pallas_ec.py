@@ -7,6 +7,9 @@ relaxed-limb field they share (port of tpu_mpc/ec/pallas_ec.py).
 
 K4 reads each base's comb table as u8 planes in tensor-core fragment order
 (comb_planes, cached per base and device); comb_plain reads the int32 table.
+ladder_call, comb_call and affine_call split their lanes over the active
+sessions mesh (sharding/mesh.py:launch; no mesh, one piece); *_launch
+launches a piece.
 
 Point algebra is the Renes-Costello-Batina complete projective formulas
 (a = 0, b3 = 21): no exception branches, identity (0:1:0).  Jacobian inputs
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import device_key
 from ..host import ec as hec
+from ..sharding import mesh as sharding
 
 L = 16               # 16-bit limbs per field element
 NENT = 16            # 4-bit window entries (GLV ladders)
@@ -69,7 +74,7 @@ _CONSTS: dict = {}
 
 
 def _consts(device) -> dict:
-    key = str(device)
+    key = device_key(device)
     c = _CONSTS.get(key)
     if c is None:
         t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
@@ -284,6 +289,12 @@ def _pt_i32(t):
 
 
 def ladder_call(pts, dg, neg):
+    """K3 over the active sessions mesh, one ladder_launch a piece (every
+    operand per lane)."""
+    return sharding.launch(ladder_launch, (pts, dg, neg), (0, 1, 2))
+
+
+def ladder_launch(pts, dg, neg):
     """K3 on CUDA tensors; the plain version on CPU tensors."""
     if pts.device.type == "cpu":
         return ladder_plain(pts, dg, neg)
@@ -338,6 +349,13 @@ def comb_planes(tab):
 
 
 def comb_call(dg, tab, planes=None):
+    """K4 over the active sessions mesh, one comb_launch a piece: dg is per
+    lane; the table and its planes are shared, copied once to each device of
+    the mesh."""
+    return sharding.launch(comb_launch, (dg, tab, planes), (0,))
+
+
+def comb_launch(dg, tab, planes=None):
     """K4 on CUDA tensors, which need `planes` = comb_planes(tab) (cached
     with the table by _comb8_for); the plain version on CPU tensors."""
     if dg.device.type == "cpu":
@@ -400,6 +418,11 @@ def affine_plain(pts):
 
 
 def affine_call(pts):
+    """K5 over the active sessions mesh, one affine_launch a piece."""
+    return sharding.launch(affine_launch, (pts,), (0,))
+
+
+def affine_launch(pts):
     """K5 on CUDA tensors; the plain version on CPU tensors."""
     if pts.device.type == "cpu":
         return affine_plain(pts)
@@ -484,7 +507,7 @@ def _comb8_host(base_xy) -> np.ndarray:
 def _comb8_for(base_xy, device):
     """(table, planes) of a base on a device, built once: the int32 table
     for comb_plain and its u8 planes for K4."""
-    key = (base_xy, str(device))
+    key = (base_xy, device_key(device))
     if key not in _COMB8_CACHE:
         tab = torch.as_tensor(_comb8_host(base_xy))
         _COMB8_CACHE[key] = (tab.to(device), comb_planes(tab).to(device))

@@ -23,7 +23,7 @@ import torch
 from ..core import bigint as bi
 from ..core.limbs import batch_from_limbs, batch_to_limbs, nlimbs
 from ..core.montgomery import MontCtx, mod_mul
-from ..device import resolve_device, to_numpy
+from ..device import device_key, resolve_device, to_numpy
 from ..host import ec as hec
 from . import pallas_ec as pe
 
@@ -36,7 +36,7 @@ _CONST: dict = {}
 
 
 def _c(device) -> dict:
-    key = str(device)
+    key = device_key(device)
     c = _CONST.get(key)
     if c is None:
         t = lambda v, n=L: torch.as_tensor(

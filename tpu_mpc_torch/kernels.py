@@ -14,7 +14,9 @@ a hash of the sources, so an edited kernel is rebuilt.  Nothing is built
 or imported when this module is imported.
 
 LAUNCHES counts the kernel launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else.  Under a sessions mesh
+(sharding/mesh.py) a wrapper call launches one piece per mesh entry, and
+each piece counts.
 """
 
 from __future__ import annotations

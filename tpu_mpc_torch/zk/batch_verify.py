@@ -25,6 +25,7 @@ import os
 import numpy as np
 
 from ..core.modctx import host_mulmod, resolve
+from ..sharding import mesh as sharding
 from .pdl_slack import (
     PDLwSlackProofBatch,
     PDLwSlackStatementBatch,
@@ -114,9 +115,14 @@ def _grouping(shape, n_groups: int, *arrays):
 def sample_gammas(shape) -> np.ndarray:
     """Verifier-side batching exponents: fresh unpredictable 128-bit ints
     (os.urandom), sampled AFTER the proofs are fixed.  Not Fiat-Shamir —
-    these never leave the verifier."""
+    these never leave the verifier.  Under a sessions mesh over ranks, rank
+    0 draws them and every rank takes its bytes, so that the ranks' sharded
+    launches agree."""
     count = int(np.prod(shape)) if shape else 1
     raw = os.urandom(count * (GAMMA_BITS // 8))
+    mesh = sharding.current_mesh()
+    if mesh is not None and mesh.group is not None:
+        raw = mesh.broadcast_bytes(raw)
     w = GAMMA_BITS // 8
     out = np.empty(count, dtype=object)
     for i in range(count):
