@@ -43,12 +43,21 @@ Phases (any failure exits non-zero and prints no result line):
              offline_stage + sign_online in the order uniform, tables,
              tables, uniform.  The first K3/K4/K5 launch at each shape of
              the warm-up passes is held against its plain version on its
-             inputs.  Every signature must verify under the
-             pure-python ECDSA verifier; every kernel must have been
-             launched in each tables pass, every kernel but K2 in each
-             uniform pass.  Each timed pass prints K1's device time split by
-             operand width (2048-bit N, 4096-bit N^2) and the K3, K4 and
-             K5 launches by lane count (and ns).
+             inputs.  Every signature must verify under the batched
+             verifier (host/ec.py:ecdsa_verify_batch); every kernel must
+             have been launched in each tables pass, every kernel but K2 in
+             each uniform pass.  Each timed pass prints K1's device time
+             split by operand width (2048-bit N, 4096-bit N^2) and the K3,
+             K4 and K5 launches by lane count (and ns).  Then the first
+             timed tables pass's signatures and as many tampered cases (s+1,
+             m+1, r+1, a None key, a key off the curve, an (x + P, y) alias)
+             through ecdsa_verify_batch and ecdsa_verify: equal answers but
+             on the off-curve keys, which the batch verifier rejects; prints
+             both host times.  Then one more tables pass with the launch log
+             on (TPU_MPC_TORCH_PROFILE=1) from a fresh SessionRng: (r, s,
+             recid) equal to the tables warm-up pass, only the reference's
+             kinds logged, the TOTAL count equal to the rows; prints
+             profile_summary().
   5. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
              sessions interleaved (session s on key group s % 8), tables
              configuration with the tables compressed at 8 key sets behind a
@@ -149,16 +158,9 @@ K1_BLAME_LANES = 512                 # S*tp*tp: phase-5 blame's c_A^gamma mod N^
 K1_RANGE_NI_LANES = 64 * 2 * 40      # Lindell'17 at S = 64: range_proof_ni's r^N over [S, 2 x REPS]
 K1_L17_LANES = 64                    # Lindell'17 sign's c_key^v mod N^2
 MSG = 0x1C8AA4E93D8F4D7C9E21B5A7D301F2B8D4E6C0A9F3B5D7E9C1A3B5D7E9F10203
-# H100 SXM peaks.  HBM: 3.35 TB/s (NVIDIA's data sheet).  The kernels'
-# arithmetic is 32x32-bit integer multiply-adds (IMAD, one each, widening or
-# not): 132 SMs x 64 INT32 lanes per clock x 1.98 GHz (the boost clock behind
-# the data sheet's 67 TFLOP/s float32 = 132 x 128 x 2 x 1.98 GHz).  A
-# widening IMAD counted as one instruction keeps the bound a lower bound.
-PEAK_BYTES = 3.35e12
-PEAK_IMAD = 132 * 64 * 1.98e9
-# K1 and K2 run their extension and decode dots as u8 products on the tensor
-# cores: 1979 T int8 operations/s dense (NVIDIA's data sheet) = 989.5 T MAC/s
-PEAK_U8_MAC = 1979e12 / 2
+# The card's peaks (PEAK_BYTES, PEAK_IMAD, PEAK_U8_MAC) and the RNS work
+# model (rns_work, k1_montmuls, k2_montmuls) are tpu_mpc_torch/core/modctx.py's,
+# which its launch log's summary shares.
 # multiply-adds of one secp256k1 field operation on 8 x 32-bit limbs
 # (reductions not counted): product, square, multiply by a small constant
 FE_MUL, FE_SQ, FE_MULI = 64, 36, 8
@@ -207,31 +209,11 @@ def _bound(nbytes: float, imads: float, u8_macs: float = 0.0):
     Bytes count each value at the width it needs: 16-bit limbs and residues
     2 B, digits and signs 1 B, exponent words and K1's constants 4 B, the
     tensor-core planes 1 B, K1's column sums 8 B."""
+    from tpu_mpc_torch.core.modctx import PEAK_BYTES, PEAK_IMAD, PEAK_U8_MAC
+
     tb = nbytes / PEAK_BYTES * 1e3
     to = max(imads / PEAK_IMAD, u8_macs / PEAK_U8_MAC) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def _rns_work(par, mm: int, lanes: int, prologue: bool):
-    """(u8 MACs, IMADs, IMAD-only count) of `mm` RNS Montgomery multiplies
-    plus the decode (and K1's prologue) on `lanes` lanes.  A multiply is two
-    extension products, K (Kp+1) + Kp (K+1) entries, each 4 u8 chunk
-    products on the tensor cores; the decode is K Lout entries.  Channel
-    work: 3 products on each A-channel, 4 on each B-channel and 3 on the r
-    channel, each one multiply-add plus a Barrett reduction (2), and the
-    three-reduction fold of every extension output (6 per channel).  The
-    IMAD-only count runs the dots as IMADs beside 7 CH channel products, as
-    the one-lane-per-block kernels did: the row's imad_bound_ms, which
-    compares with the bounds recorded for those."""
-    K, Kp, CH = par.K, par.Kp, par.CH
-    ext = K * (Kp + 1) + Kp * (K + 1)
-    u8 = lanes * 4 * (mm * ext + K * par.Lout)
-    chan = 3 * (3 * K + 4 * Kp + 3) + 6 * (K + Kp)
-    imad = lanes * (mm * chan + (par.Lin * (K + Kp) + 4 * (K + Kp) if prologue else 0)
-                    + 3 * K)
-    old = lanes * (mm * (ext + 7 * CH) + (par.Lin * (K + Kp) if prologue else 0)
-                   + K * par.Lout)
-    return u8, imad, old
 
 
 def _maxerr(a, b) -> int:
@@ -245,11 +227,9 @@ def _maxerr(a, b) -> int:
 def _k1_bound(par, lanes, ne2, x, e, rows, dev):
     """K1's bound (ms, by) and its IMAD-only bound (ms) for one launch."""
     from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.modctx import k1_montmuls, rns_work
 
-    # Montgomery multiplies: x*R^2, 14 table entries, 8 windows of 4
-    # squarings + 1 multiply per e-word, the decode's *1
-    mm = 1 + 14 + ne2 * 8 * 5 + 1
-    u8, imad, old = _rns_work(par, mm, lanes, prologue=True)
+    u8, imad, old = rns_work(par, k1_montmuls(ne2), lanes, prologue=True)
     cs = pr.dev_consts(par, dev)
     nbytes = (2 * (x.numel() + rows.numel()) + 4 * e.numel() + 4 * cs["flat32"].numel()
               + cs["planes"].numel() + 8 * lanes * par.Lout)
@@ -445,7 +425,7 @@ def check_k2(dev, rnd):
 
     from tpu_mpc_torch.core import pallas_rns as pr
     from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
-    from tpu_mpc_torch.core.modctx import ModCtx, ebits_class
+    from tpu_mpc_torch.core.modctx import ModCtx, ebits_class, k2_montmuls, rns_work
     from tpu_mpc_torch.core.rns import RnsLazy, RnsParams
 
     lanes = K2_LANES
@@ -531,8 +511,7 @@ def check_k2(dev, rnd):
         ms = _events_ms(lambda: pr.fixed_call(*args), 3)
         pms = _events_ms(lambda: pr.fixed_plain(*args), 1)
         B = e.shape[0]
-        mm = sum(nwins) + 1                    # one multiply per window, the decode's *1
-        u8, imad, old = _rns_work(par, mm, B, prologue=False)
+        u8, imad, old = rns_work(par, k2_montmuls(nwins), B, prologue=False)
         # table entries this run's digits touch (per base: window, digit, group)
         touched = 0
         for t_, nwin, woff in zip(tabs_k, nwins, woffs):
@@ -1102,13 +1081,14 @@ def run_slice(dev, material, host_profile: bool = False):
             f"{S_SESSIONS} signatures verify; K3/K4/K5 exact against plain at the main "
             f"path's shapes so far: {', '.join(sorted(held))}")
 
-    runs = []
+    runs, timed_sig = [], {}
     for cfg in ("uniform", "tables", "tables", "uniform"):
         torch.cuda.synchronize()
         kernels.reset_launches()
         with Instrument(held) as inst:
-            dt, t_off, _ = one_pass(cfg)
+            dt, t_off, sig = one_pass(cfg)
         launches = dict(kernels.LAUNCHES)
+        timed_sig.setdefault(cfg, sig)
         busy = inst.busy()
         tot = sum(busy.get(k, 0.0) for k in launches)
         ec_shapes = {k: v for k, v in inst.by_shape.items() if k[:2] in ("K3", "K4", "K5")}
@@ -1127,6 +1107,8 @@ def run_slice(dev, material, host_profile: bool = False):
     for cfg in CONFIGS:
         rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]
         log(f"slice[{cfg}]: sig/s over its two timed passes " + ", ".join(f"{r:.2f}" for r in rates))
+    check_verifiers(keys["tables"], timed_sig["tables"])
+    profiled_pass(keys["tables"], first["tables"])
     if host_profile:
         import cProfile
         import io
@@ -1143,6 +1125,101 @@ def run_slice(dev, material, host_profile: bool = False):
     # the main path is the tables configuration: its first timed pass
     t_launches, t_dt = next((r[1], r[3]) for r in runs if r[0] == "tables")
     return t_launches, keys["tables"], key1s["tables"], first["tables"], t_dt
+
+
+def check_verifiers(key, sig):
+    """The batched verifier (host/ec.py:ecdsa_verify_batch, on every batched
+    signing path) against the single-signature oracle ecdsa_verify on the
+    S signatures of a timed tables pass and S tampered cases: s + 1, m + 1,
+    r + 1, a None key, a key off the curve with a signature the affine
+    formulas accept (Q = (5, 123456789), r = x(t Q) mod N, s = r / t,
+    m = 0), and the key's (x + P, y) alias.  The two must agree on every
+    case but the off-curve ones, which the batch verifier (as OpenSSL, the
+    reference's) must reject; prints both host times, and the batch
+    verifier's on the S signatures alone (its share of a pass)."""
+    from tpu_mpc_torch.ec import secp256k1 as dec
+    from tpu_mpc_torch.host import ec as hec
+
+    N, P = hec.N, hec.P
+    y = dec.points_to_host(key.y)
+    m = MSG % N
+    cases, want = [], []
+    for b in range(S_SESSIONS):
+        Y, r, s = y[b], int(sig.r[b]), int(sig.s[b])
+        cases.append((Y, m, r, s))
+        want.append(True)
+        kind = b % 6
+        if kind == 4:
+            t = 0x1234567 + b
+            Q = (5, 123456789)
+            rq = hec.mul(t, Q)[0] % N
+            cases.append((Q, 0, rq, rq * pow(t, -1, N) % N))
+        else:
+            cases.append(((Y, m, r, s + 1), (Y, m + 1, r, s), (Y, m, r + 1, s), (None, m, r, s),
+                          None, ((Y[0] + P, Y[1]), m, r, s))[kind])
+        want.append(kind == 5)
+    t0 = time.perf_counter()
+    require(all(hec.ecdsa_verify_batch(*zip(*cases[0::2]))), "verify: a signature failed")
+    t_pass = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = hec.ecdsa_verify_batch(*zip(*cases))
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = [pub is not None and hec.ecdsa_verify(pub, mv, r, s) for pub, mv, r, s in cases]
+    t_single = time.perf_counter() - t0
+    off = [i for i in range(len(cases)) if i % 2 and (i // 2) % 6 == 4]
+    require(got == want, f"verify: the batch verifier's answers differ from the expected at "
+            f"{[i for i in range(len(cases)) if got[i] != want[i]][:8]}")
+    require(all(got[i] == single[i] for i in range(len(cases)) if i not in off),
+            "verify: ecdsa_verify_batch and ecdsa_verify disagree on the curve")
+    log(f"verify: {len(cases)} cases ({S_SESSIONS} signatures of a timed tables pass, "
+        f"{S_SESSIONS} tampered: s+1, m+1, r+1, None key, off curve, (x+P, y)): "
+        f"ecdsa_verify_batch {t_batch:.3f} s, ecdsa_verify {t_single:.3f} s "
+        f"({t_single / t_batch:.1f}x); equal on the curve; the {len(off)} off-curve cases "
+        f"rejected by the batch verifier, accepted by ecdsa_verify in "
+        f"{sum(single[i] for i in off)}; the {S_SESSIONS} signatures alone through "
+        f"ecdsa_verify_batch {t_pass:.3f} s")
+
+
+def profiled_pass(key, want):
+    """One more tables pass with the launch log on (TPU_MPC_TORCH_PROFILE=1,
+    core/modctx.py:PROFILE), from a fresh SessionRng(SLICE_SEED): its
+    (r, s, recid) must equal the slice's tables warm-up pass under the same
+    seed, every kind it logs must be one of the reference's names, and the
+    summary's TOTAL count must equal the log's rows.  Prints the summary."""
+    import torch
+
+    from tpu_mpc_torch.core import modctx
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.utils.rng import SessionRng
+
+    os.environ[ENC_ENV] = CONFIGS["tables"]
+    os.environ["TPU_MPC_TORCH_PROFILE"] = "1"
+    modctx.PROFILE_LOG.clear()
+    modctx.PROFILE = True
+    try:
+        t0 = time.perf_counter()
+        off = gg20.offline_stage(key, [0, 1], SessionRng(SLICE_SEED))
+        sig = gg20.sign_online(off, MSG)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        modctx.PROFILE = False
+        os.environ.pop("TPU_MPC_TORCH_PROFILE")
+    require(off.ok.all() and sig.sig_valid.all(), "profile: a signature failed")
+    require(_sig_ints(sig) == want, "profile: (r, s, recid) differ from the tables warm-up pass")
+    kinds = {row[0] for row in modctx.PROFILE_LOG}
+    require(kinds <= set(modctx.PROFILE_KINDS),
+            f"profile: kinds that are not the reference's: {sorted(kinds - set(modctx.PROFILE_KINDS))}")
+    n_rows = len(modctx.PROFILE_LOG)
+    logged = sum(row[4] for row in modctx.PROFILE_LOG if not row[0].startswith("host:"))
+    summary = modctx.profile_summary()
+    total = summary.splitlines()[-1]
+    require(total.startswith(f"TOTAL modexp launches: {n_rows}  "),
+            f"profile: {total!r} against {n_rows} rows")
+    log(f"profile: a tables pass under TPU_MPC_TORCH_PROFILE=1 in {dt:.2f} s, (r, s, recid) "
+        f"equal to the warm-up pass's; {n_rows} rows, {len(kinds)} kinds, device rows "
+        f"{logged:.2f} s (host rows nest inside them)\n" + summary)
 
 
 def _sig_ints(sig):

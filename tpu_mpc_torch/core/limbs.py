@@ -7,7 +7,11 @@ arrays; torch tensors are accepted wherever an array is read.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+
+from . import modctx as _m
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -38,15 +42,20 @@ def from_limbs(a) -> int:
 
 def batch_to_limbs(xs, L: int) -> np.ndarray:
     """Encode a (nested) array of python ints into an [..., L] int64 array."""
+    t0 = time.perf_counter() if _m.PROFILE else 0.0
     arr = np.asarray(xs, dtype=object)
     flat = arr.reshape(-1)
     buf = b"".join(int(v).to_bytes(2 * L, "little") for v in flat.tolist())
     out = np.frombuffer(buf, dtype="<u2").astype(np.int64)
+    if _m.PROFILE:
+        _m.PROFILE_LOG.append(("host:to_limbs", flat.shape[0], L * 16, "-",
+                               time.perf_counter() - t0))
     return out.reshape(arr.shape + (L,))
 
 
 def batch_from_limbs(a) -> np.ndarray:
     """Decode an [..., L] limb array (numpy or tensor) into object ints."""
+    t0 = time.perf_counter() if _m.PROFILE else 0.0
     a = _as_np(a)
     lead = a.shape[:-1]
     flat = a.reshape(-1, a.shape[-1])
@@ -59,4 +68,7 @@ def batch_from_limbs(a) -> np.ndarray:
     else:
         for i in range(flat.shape[0]):
             out[i] = from_limbs(flat[i])
+    if _m.PROFILE:
+        _m.PROFILE_LOG.append(("host:from_limbs", flat.shape[0], flat.shape[1] * 16, "-",
+                               time.perf_counter() - t0))
     return out.reshape(lead) if lead else out[0]

@@ -20,16 +20,162 @@ Two decisions of the port:
   host_mulmod.  The integers equal mont_exp_prod's.  (The reference runs a
   CIOS Straus loop compiled by XLA there; written in eager torch at 4096
   bits that loop would take millions of launches per call.)
+
+The launch log (TPU_MPC_TORCH_PROFILE=1, the reference's TPU_MPC_PROFILE):
+one row (kind, batch, bits, ebits, seconds) per modexp, EC, decrypt and
+host-arithmetic call, with the reference's kind names (PROFILE_KINDS), so
+that a pass's host time splits by call; profile_summary() prints it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+
+# The launch log.  Call sites read PROFILE when they are called, so it can
+# be switched at run time.  On, every ModCtx call resolves its launch (a
+# host read, which waits for the card) and prof_call synchronises with the
+# card, so a row covers its own launches; off, a call pays one branch.
+# Host rows may nest inside device rows (a decode's host:from_limbs inside
+# its pow_rns), as in the reference.
+PROFILE = bool(int(os.environ.get("TPU_MPC_TORCH_PROFILE", "0")))
+PROFILE_LOG: list[tuple] = []  # (kind, batch, mod_bits, ebits, seconds)
+# the kinds the port logs, each one of the reference's names
+PROFILE_KINDS = (
+    "pow_rns", "pow_red0", "powfix_rns", "pow_prod", "decrypt",
+    "ec:smul", "ec:mulG", "ec:mulH2", "ec:mulFB", "ec:dmul", "ec:affine", "ec:hashpts",
+    "host:mulmod", "host:prodax0", "host:invmod", "host:digest", "host:to_limbs",
+    "host:from_limbs",
+)
+
+
+def _sync(out) -> None:
+    """torch.cuda.synchronize on the device of the first card tensor in
+    `out` (a tensor, or tuples and lists of them)."""
+    todo = [out]
+    while todo:
+        a = todo.pop()
+        if isinstance(a, torch.Tensor):
+            if a.is_cuda:
+                torch.cuda.synchronize(a.device)
+                return
+        elif isinstance(a, (tuple, list)):
+            todo.extend(a)
+
+
+def prof_call(kind: str, batch: int, bits: int, fn):
+    """fn(); with PROFILE on, timed up to the end of its launches on the
+    card, and logged as one row."""
+    if not PROFILE:
+        return fn()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(out)
+    PROFILE_LOG.append((kind, batch, bits, "-", time.perf_counter() - t0))
+    return out
+
+
+def _log_resolved(kind: str, shape, bits: int, ebits, t0: float, lz):
+    """PROFILE: resolve a ModCtx launch and log its row."""
+    res = resolve(lz)
+    PROFILE_LOG.append((kind, int(np.prod(shape, dtype=np.int64)) if shape else 1, bits,
+                        ebits, time.perf_counter() - t0))
+    return res
+
+
+# Peaks of the card the port is measured on, an NVIDIA H100 SXM (NVIDIA H100
+# 80GB HBM3 at 700 W in PERF.md).  HBM: 3.35 TB/s (NVIDIA's data sheet).  The
+# kernels' arithmetic is 32x32-bit integer multiply-adds (IMAD, one each,
+# widening or not): 132 SMs x 64 INT32 lanes per clock x 1.98 GHz (the boost
+# clock behind the data sheet's 67 TFLOP/s float32 = 132 x 128 x 2 x 1.98
+# GHz).  A widening IMAD counted as one instruction keeps a bound a lower
+# bound.  K1 and K2 run their extension and decode dots as u8 products on
+# the tensor cores: 1979 T int8 operations/s dense = 989.5 T MAC/s.
+PEAK_BYTES = 3.35e12
+PEAK_IMAD = 132 * 64 * 1.98e9
+PEAK_U8_MAC = 1979e12 / 2
+
+
+def k1_montmuls(ne2: int) -> int:
+    """RNS Montgomery multiplies of one K1 lane with `ne2` 32-bit exponent
+    words: x*R^2, 14 table entries, 8 windows of 4 squarings + 1 multiply a
+    word, the decode's *1."""
+    return 1 + 14 + ne2 * 8 * 5 + 1
+
+
+def k2_montmuls(nwins) -> int:
+    """RNS Montgomery multiplies of one K2 lane: one a window of every base,
+    the decode's *1."""
+    return sum(nwins) + 1
+
+
+def rns_work(par, mm: int, lanes: int, prologue: bool):
+    """(u8 MACs, IMADs, IMAD-only count) of `mm` RNS Montgomery multiplies
+    plus the decode (and K1's prologue) on `lanes` lanes (par: rns.RnsParams).
+    A multiply is two extension products, K (Kp+1) + Kp (K+1) entries, each
+    4 u8 chunk products on the tensor cores; the decode is K Lout entries.
+    Channel work: 3 products on each A-channel, 4 on each B-channel and 3 on
+    the r channel, each one multiply-add plus a Barrett reduction (2), and
+    the three-reduction fold of every extension output (6 per channel).  The
+    IMAD-only count runs the dots as IMADs beside 7 CH channel products, as
+    the one-lane-per-block kernels did."""
+    K, Kp, CH = par.K, par.Kp, par.CH
+    ext = K * (Kp + 1) + Kp * (K + 1)
+    u8 = lanes * 4 * (mm * ext + K * par.Lout)
+    chan = 3 * (3 * K + 4 * Kp + 3) + 6 * (K + Kp)
+    imad = lanes * (mm * chan + (par.Lin * (K + Kp) + 4 * (K + Kp) if prologue else 0)
+                    + 3 * K)
+    old = lanes * (mm * (ext + 7 * CH) + (par.Lin * (K + Kp) if prologue else 0)
+                   + K * par.Lout)
+    return u8, imad, old
+
+
+def _rns_rates(kind: str, bits: int, ebs, items: int, tot: float):
+    """(u8 MAC/s, IMAD/s) achieved by a class of K1 / K2 rows, by rns_work."""
+    from .rns import WINDOW, RnsParams
+
+    if kind == "powfix_rns":
+        mm, prologue = k2_montmuls([-(-eb // WINDOW) for eb in ebs]), False
+    else:
+        mm, prologue = k1_montmuls(-(-ebs // 32)), True
+    u8, imad, _ = rns_work(RnsParams(bits), mm, items, prologue)
+    return u8 / tot, imad / tot
+
+
+def profile_summary(reset: bool = True) -> str:
+    """The launch log as a table, one line a (kind, bits, ebits) class by
+    total time, with achieved-against-peak columns for the K1 / K2 classes
+    (tensor-core u8 MAC/s and IMAD/s against the H100's peaks), then the
+    TOTAL line.  Rows that its own work model logs (the first RnsParams of a
+    width encodes limbs) are dropped."""
+    n_log = len(PROFILE_LOG)
+    rows = {}
+    for kind, b, bits, ebs, dt in PROFILE_LOG:
+        key = (kind, bits, ebs)
+        n, tot, items = rows.get(key, (0, 0.0, 0))
+        rows[key] = (n + 1, tot + dt, items + b)
+    lines = []
+    for (kind, bits, ebs), (n, tot, items) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        line = (f"{kind:11s} mod={bits:5d} ebits={str(ebs):18s} "
+                f"calls={n:4d} total={tot:8.2f}s")
+        if kind in ("pow_rns", "pow_red0", "powfix_rns") and tot > 0:
+            tc, imad = _rns_rates(kind, bits, ebs, items, tot)
+            line += (f"  tc={tc / 1e12:6.2f}TMAC/s ({100 * tc / PEAK_U8_MAC:4.1f}% H100)"
+                     f" imad={imad / 1e12:5.2f}T/s ({100 * imad / PEAK_IMAD:4.1f}% H100)")
+        lines.append(line)
+    del PROFILE_LOG[n_log:]
+    total = sum(dt for *_, dt in PROFILE_LOG)
+    lines.append(f"TOTAL modexp launches: {len(PROFILE_LOG)}  {total:.2f}s")
+    if reset:
+        PROFILE_LOG.clear()
+    return "\n".join(lines)
+
 
 # exponent-width ladder (bits): exponents are zero-padded up to the next class
 EBITS_CLASSES = (
@@ -52,6 +198,7 @@ def _max_bits(a) -> int:
 
 def host_mulmod(*arrays_then_mod) -> np.ndarray:
     """Elementwise product of object-int arrays modulo the last argument."""
+    t0 = time.perf_counter() if PROFILE else 0.0
     *arrays, mod = arrays_then_mod
     arrays = [np.asarray(a, dtype=object) for a in arrays]
     mod = np.asarray(mod, dtype=object)
@@ -65,6 +212,9 @@ def host_mulmod(*arrays_then_mod) -> np.ndarray:
         for a in flat:
             acc = acc * int(a[b]) % m
         out[b] = acc
+    if PROFILE:
+        PROFILE_LOG.append(("host:mulmod", fm.shape[0] * len(flat), 0, "-",
+                            time.perf_counter() - t0))
     return out.reshape(shape)
 
 
@@ -72,6 +222,7 @@ def host_invmod(a, mod) -> np.ndarray:
     """Elementwise a^{-1} mod `mod` on object ints; 0 where a is not
     invertible, so that a check built on it fails (the reference's
     zk/range_proofs.py:_invmod)."""
+    t0 = time.perf_counter() if PROFILE else 0.0
     a = np.asarray(a, dtype=object)
     mod = np.asarray(mod, dtype=object)
     shape = np.broadcast_shapes(a.shape, mod.shape)
@@ -83,11 +234,14 @@ def host_invmod(a, mod) -> np.ndarray:
             out[b] = pow(int(fa[b]), -1, int(fm[b]))
         except ValueError:
             out[b] = 0
+    if PROFILE:
+        PROFILE_LOG.append(("host:invmod", fa.shape[0], 0, "-", time.perf_counter() - t0))
     return out.reshape(shape)
 
 
 def host_prod_axis0(vals, mod) -> np.ndarray:
     """prod over the leading axis of object-int `vals` modulo `mod`."""
+    t0 = time.perf_counter() if PROFILE else 0.0
     vals = np.asarray(vals, dtype=object)
     S, rest = vals.shape[0], vals.shape[1:]
     fm = np.broadcast_to(np.asarray(mod, dtype=object), (1,) + rest).reshape(-1)
@@ -99,6 +253,8 @@ def host_prod_axis0(vals, mod) -> np.ndarray:
         for s in range(S):
             acc = acc * int(flat[s, j]) % m
         out[j] = acc
+    if PROFILE:
+        PROFILE_LOG.append(("host:prodax0", int(flat.size), 0, "-", time.perf_counter() - t0))
     return out.reshape((1,) + rest)
 
 
@@ -214,10 +370,13 @@ class ModCtx:
         shape = np.broadcast_shapes(base.shape, expv.shape, self.batch_shape)
         eb = ebits_class(max(ebits_hint, 1))
         if len(shape) >= 1 and shape[0] > 1:
+            t0 = time.perf_counter() if PROFILE else 0.0
             ctx0 = self._rns.map_batch(lambda t: t[:1])
             lz = rns.rns_exp_dispatch(
                 ctx0, self.n_ints[:1], np.broadcast_to(base, shape),
                 np.broadcast_to(expv, shape), eb, reduce_axis0=True)
+            if PROFILE:
+                return _log_resolved("pow_red0", shape, self.bits, eb, t0, lz)
             return resolve(lz) if sync else lz
         vals = self.pow(base, expv, ebits_hint=ebits_hint, sync=True)
         return host_prod_axis0(np.broadcast_to(np.asarray(vals, dtype=object), shape),
@@ -235,8 +394,11 @@ class ModCtx:
         if ebits_hint is None:
             ebits_hint = _max_bits(expv)
         eb = ebits_class(max(ebits_hint, 1))
+        t0 = time.perf_counter() if PROFILE else 0.0
         lz = rns.rns_exp_dispatch(self._rns, self.n_ints, np.broadcast_to(base, shape),
                                   np.broadcast_to(expv, shape), eb)
+        if PROFILE:
+            return _log_resolved("pow_rns", shape, self.bits, eb, t0, lz)
         return resolve(lz) if sync else lz
 
     def pow_prod(self, bases, exps, ebits_hints=None, mults=(), sync: bool = True):
@@ -258,18 +420,24 @@ class ModCtx:
                 hint = _max_bits(np.broadcast_to(e, shape))
             ebs.append(ebits_class(max(hint, 1)))
         n_b = np.broadcast_to(self.n_ints, shape)
+        t0 = time.perf_counter() if PROFILE else 0.0
         if len(bases) == 1:
             lz = rns.rns_exp_dispatch(self._rns, self.n_ints,
                                       np.broadcast_to(bases[0], shape),
                                       np.broadcast_to(exps[0], shape), ebs[0])
             if mults:
                 lz.mults = tuple(mults)
+            if PROFILE:
+                return _log_resolved("pow_rns", shape, self.bits, ebs[0], t0, lz)
             return resolve(lz) if sync else lz
         kb = len(bases)
         stk = lambda arrs: np.stack([np.broadcast_to(a, shape) for a in arrs])
         lz = rns.rns_exp_dispatch(self._rns, self.n_ints, stk(bases), stk(exps), max(ebs))
         ms = list(mults)
         out = LazyMap(lz, lambda v: host_mulmod(*(v[i] for i in range(kb)), *ms, n_b))
+        if PROFILE:
+            # the reference's kind for a multi-base product (its CIOS Straus launch)
+            return _log_resolved("pow_prod", shape, self.bits, tuple(ebs), t0, out)
         return resolve(out) if sync else out
 
     def make_tables_rns(self, bases, max_ebits: int) -> list:
@@ -289,6 +457,9 @@ class ModCtx:
         from . import rns
 
         ebs = [ebits_class(max(h, 1)) for h in ebits_hints]
+        t0 = time.perf_counter() if PROFILE else 0.0
         lz = rns.rns_fixed_prod_dispatch(self._rns, self.n_ints, tables, exps, ebs, self.bits,
                                          gmap=gmap)
+        if PROFILE:
+            return _log_resolved("powfix_rns", lz.shape, self.bits, tuple(ebs), t0, lz)
         return resolve(lz) if sync else lz

@@ -22,6 +22,7 @@ import torch
 
 from ..core import bigint as bi
 from ..core.limbs import batch_from_limbs, batch_to_limbs, nlimbs
+from ..core.modctx import prof_call
 from ..core.montgomery import MontCtx, mod_mul
 from ..device import device_key, resolve_device, to_numpy
 from ..host import ec as hec
@@ -212,30 +213,34 @@ def _flat(t, batch):
 def scalar_mul(k, p: Point) -> Point:
     """k * P, batched (K3 GLV ladder, ns = 2)."""
     batch = _batch(k, *p)
-    out = pe.glv_mul(_flat(k, batch), Point(*(_flat(c, batch) for c in p)))
+    kf, pf = _flat(k, batch), Point(*(_flat(c, batch) for c in p))
+    out = prof_call("ec:smul", kf.shape[0], 256, lambda: pe.glv_mul(kf, pf))
     return _from_rows(torch.stack(list(out), -2), batch)
 
 
-def mul_fixed_base(k, base_xy) -> Point:
-    """k * B for a public fixed base (K4 8-bit comb)."""
+def mul_fixed_base(k, base_xy, label="ec:mulFB") -> Point:
+    """k * B for a public fixed base (K4 8-bit comb); `label` is the launch
+    log's kind."""
     batch = tuple(k.shape[:-1])
-    out = pe.comb_mul(_flat(k, batch), base_xy)
+    kf = _flat(k, batch)
+    out = prof_call(label, kf.shape[0], 256, lambda: pe.comb_mul(kf, base_xy))
     return _from_rows(torch.stack(list(out), -2), batch)
 
 
 def mul_generator(k):
-    return mul_fixed_base(k, hec.G)
+    return mul_fixed_base(k, hec.G, "ec:mulG")
 
 
 def mul_base_point2(k):
-    return mul_fixed_base(k, hec.BASE_POINT2)
+    return mul_fixed_base(k, hec.BASE_POINT2, "ec:mulH2")
 
 
 def dual_mul(ka, pa: Point, kb, pb: Point) -> Point:
     """ka * PA + kb * PB in one 4-stream GLV ladder (K3, ns = 4)."""
     batch = _batch(ka, kb, *pa, *pb)
     f = lambda t: _flat(t, batch)
-    out = pe.dual_mul(f(ka), Point(*(f(c) for c in pa)), f(kb), Point(*(f(c) for c in pb)))
+    kaf, paf, kbf, pbf = f(ka), Point(*(f(c) for c in pa)), f(kb), Point(*(f(c) for c in pb))
+    out = prof_call("ec:dmul", kaf.shape[0], 256, lambda: pe.dual_mul(kaf, paf, kbf, pbf))
     return _from_rows(torch.stack(list(out), -2), batch)
 
 
@@ -298,7 +303,8 @@ def point_sum(p: Point, axis: int) -> Point:
 
 def points_to_host(p: Point):
     """Device point batch -> nested python affine tuples (None = infinity)."""
-    x, y, inf = to_affine(p)
+    n = int(np.prod(p.X.shape[:-1], dtype=np.int64)) if p.X.dim() > 1 else 1
+    x, y, inf = prof_call("ec:affine", n, 256, lambda: to_affine(p))
     xs = np.asarray(batch_from_limbs(x), dtype=object)
     ys = np.asarray(batch_from_limbs(y), dtype=object)
     infs = to_numpy(inf)

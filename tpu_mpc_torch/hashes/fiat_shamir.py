@@ -9,10 +9,12 @@ reference's.
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import torch
 
+from ..core import modctx as _m
 from ..device import to_numpy
 from ..ec import secp256k1 as ec
 from ..host import ec as hec
@@ -35,7 +37,8 @@ def point_hash_ints_many(*Ps: ec.Point) -> list:
         torch.stack([getattr(p, c).expand(batch + (Lc,)) for p in Ps])
         for c in ("X", "Y", "Z")
     ))
-    x, y, inf = ec.to_affine(stacked)
+    n = len(Ps) * (int(np.prod(batch, dtype=np.int64)) if batch else 1)
+    x, y, inf = _m.prof_call("ec:hashpts", n, 256, lambda: ec.to_affine(stacked))
     xs = to_numpy(x)
     parity = to_numpy(y[..., 0] & 1)
     infs = to_numpy(inf)
@@ -57,6 +60,7 @@ def point_hash_ints_many(*Ps: ec.Point) -> list:
 def digest_rows(*columns, reduce_mod=None) -> np.ndarray:
     """SHA-256 over rows of chained big-endian-encoded ints; columns
     broadcast to a common batch shape."""
+    t0 = time.perf_counter() if _m.PROFILE else 0.0
     cols = [np.asarray(c, dtype=object) for c in columns]
     shape = np.broadcast_shapes(*(c.shape for c in cols))
     flat = [np.broadcast_to(c, shape).reshape(-1) for c in cols]
@@ -68,6 +72,9 @@ def digest_rows(*columns, reduce_mod=None) -> np.ndarray:
             h.update(bigint_to_bytes(int(c[i])))
         v = int.from_bytes(h.digest(), "big")
         out[i] = v % reduce_mod if reduce_mod else v
+    if _m.PROFILE:
+        _m.PROFILE_LOG.append(("host:digest", n * len(flat), 0, "-",
+                               time.perf_counter() - t0))
     return out.reshape(shape) if shape else out[0]
 
 

@@ -1,7 +1,16 @@
 """Pure-python secp256k1 — golden oracle and host-side EC (port of tpu_mpc/host/ec.py).
 
-The OpenSSL-backed batch verifier of the reference is not carried over:
-the port verifies signatures with the pure-python `ecdsa_verify` below.
+`ecdsa_verify_batch` is the batched signature check of GG20, GG18 and
+Lindell'17 signing (protocols/gg18/batch.py:_finish_signatures).  The
+reference runs that check through OpenSSL (`cryptography`), which the port
+does not import; the port's is standard-library python (Jacobian
+coordinates, Shamir's trick, window tables) that gives OpenSSL's answer
+case for case, a key off the curve included.  The reference's
+`ecdsa_verify_openssl` is not carried over: its role, a check independent
+of the repo's EC code, is played by the tests, which call the reference's
+OpenSSL functions on the same cases.  `ecdsa_verify` stays the
+single-signature oracle of the runtime and of CCLST'19, as in the
+reference.
 
 Mirrors the behavior of curv's secp256k1 `Point`/`Scalar` (used throughout
 ZenGo-X/multi-party-ecdsa, e.g. src/protocols/multi_party_ecdsa/gg_2020/party_i.rs:627-633).
@@ -10,6 +19,7 @@ Affine coordinates; None represents the point at infinity.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import Optional, Tuple
 
@@ -126,6 +136,114 @@ def ecdsa_verify(pubkey: Point, msg_hash: int, r: int, s: int) -> bool:
     if pt is None:
         return False
     return pt[0] % N == r
+
+
+# --- batched verification (the reference's ecdsa_verify_batch answers) ---
+#
+# Jacobian points (X, Y, Z) of python ints, x = X/Z^2, y = Y/Z^3; Z = 0 is
+# infinity.  u1 G + u2 Y by Shamir's trick: one chain of 256 doublings, a
+# 4-bit window of the key Y (table of 1..15 Y, affine, built once per
+# distinct key of a batch) and an 8-bit window of G (table of 1..255 G,
+# affine, built once per process).
+
+_INF = (1, 1, 0)
+
+
+def _jac_double(X: int, Y: int, Z: int):
+    """2 (X, Y, Z) on y^2 = x^3 + 7 (dbl-2009-l; a point with Y = 0 or Z = 0
+    goes to Z = 0, infinity)."""
+    A = X * X % P
+    B = Y * Y % P
+    C = B * B % P
+    D = 2 * ((X + B) ** 2 - A - C) % P
+    E = 3 * A
+    X3 = (E * E - 2 * D) % P
+    return X3, (E * (D - X3) - 8 * C) % P, 2 * Y * Z % P
+
+
+def _jac_add_affine(X1: int, Y1: int, Z1: int, x2: int, y2: int):
+    """(X1, Y1, Z1) + (x2, y2) for an affine point that is not infinity:
+    complete, doubling where the two points are equal and infinity where
+    they are opposite."""
+    if Z1 == 0:
+        return x2, y2, 1
+    Z1Z1 = Z1 * Z1 % P
+    H = (x2 * Z1Z1 - X1) % P
+    R = (y2 * Z1 * Z1Z1 - Y1) % P
+    if H == 0:
+        return _jac_double(X1, Y1, Z1) if R == 0 else _INF
+    HH = H * H % P
+    HHH = H * HH % P
+    V = X1 * HH % P
+    X3 = (R * R - HHH - 2 * V) % P
+    return X3, (R * (V - X3) - Y1 * HHH) % P, Z1 * H % P
+
+
+def _multiples(pt: Point, n: int) -> list:
+    """[None, pt, 2 pt, ..., n pt] in affine coordinates."""
+    out = [None, pt]
+    for _ in range(n - 1):
+        out.append(add(out[-1], pt))
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _g_table() -> list:
+    return _multiples(G, 255)
+
+
+def _key_table(pub, tables: dict):
+    """The 4-bit window table of a public key, or None where OpenSSL refuses
+    the key: a negative coordinate, or a point off the curve once both
+    coordinates are reduced mod p (OpenSSL reduces them: (x + p, y) and
+    (x, y + p) are the key (x, y))."""
+    tab = tables.get(pub, False)
+    if tab is False:
+        x, y = int(pub[0]), int(pub[1])
+        tab = None
+        if x >= 0 and y >= 0 and is_on_curve((x % P, y % P)):
+            tab = _multiples((x % P, y % P), 15)
+        tables[pub] = tab
+    return tab
+
+
+def _verify_one(tab_y: list, m: int, r: int, s: int) -> bool:
+    if not (1 <= r < N and 1 <= s < N):
+        return False
+    tab_g = _g_table()
+    w = pow(s, -1, N)
+    u1 = m % N * w % N
+    u2 = r * w % N
+    X, Y, Z = _INF
+    for shift in range(248, -8, -8):
+        for nib in (shift + 4, shift):
+            for _ in range(4):
+                X, Y, Z = _jac_double(X, Y, Z)
+            d = (u2 >> nib) & 15
+            if d:
+                X, Y, Z = _jac_add_affine(X, Y, Z, *tab_y[d])
+        b = (u1 >> shift) & 255
+        if b:
+            X, Y, Z = _jac_add_affine(X, Y, Z, *tab_g[b])
+    if Z == 0:
+        return False
+    zi = pow(Z, -1, P)
+    return X * zi * zi % P % N == r
+
+
+def ecdsa_verify_batch(pubkeys, msg_hashes, rs, ss) -> list:
+    """ECDSA verification over a batch -> list of bools, with the answers of
+    the reference's OpenSSL verifier (tpu_mpc/host/ec.py:ecdsa_verify_batch):
+    False for a None key, a key OpenSSL refuses (see _key_table), r or s
+    outside [1, N), or u1 G + u2 Y at infinity; the message is taken mod N
+    and a high s is accepted.  One window table per distinct key (one signer
+    group signing many messages pays for it once)."""
+    tables: dict = {}
+    out = []
+    for pub, m, r, s in zip(pubkeys, msg_hashes, rs, ss):
+        tab = None if pub is None else _key_table(pub, tables)
+        out.append(tab is not None and _verify_one(tab, int(m), int(r), int(s)))
+    return out
 
 
 def ecdsa_sign(priv: int, msg_hash: int, k: int) -> Tuple[int, int]:

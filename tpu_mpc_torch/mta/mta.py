@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from ..core.modctx import resolve
+from ..core.modctx import prof_call, resolve
 from ..device import to_numpy
 from ..ec import secp256k1 as dec
 from ..host import ec as hec
@@ -43,7 +43,9 @@ def paillier_decrypt_ints(dk: dp.BatchDecryptionKey, c, batch_shape, bits: int =
     `batch_shape`; bits is the reference's argument, the key's width, which
     dk carries."""
     c = np.broadcast_to(np.asarray(c, dtype=object), batch_shape)
-    return np.broadcast_to(np.asarray(dp.decrypt(dk, c), dtype=object), batch_shape)
+    lead = int(np.prod(batch_shape, dtype=np.int64)) if batch_shape else 1
+    m = prof_call("decrypt", lead, bits, lambda: dp.decrypt(dk, c))
+    return np.broadcast_to(np.asarray(m, dtype=object), batch_shape)
 
 
 def expand_tree_axis(dk: dp.BatchDecryptionKey, axis: int) -> dp.BatchDecryptionKey:

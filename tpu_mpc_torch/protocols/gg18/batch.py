@@ -153,8 +153,8 @@ class SignResult:
 
 def _finish_signatures(R: dec.Point, s_sum, r_x, y: dec.Point, m_arr):
     """Low-s normalisation (the recovery id flips with s), then every
-    signature checked by the pure-python ECDSA verifier
-    (host/ec.py:ecdsa_verify; the reference calls OpenSSL).
+    signature checked by host/ec.py:ecdsa_verify_batch, which gives the
+    answers of the reference's OpenSSL verifier (a key off the curve fails).
     -> (s, recid, sig_valid), each [S]."""
     S = s_sum.shape[0]
     _, ry_l, _ = dec.to_affine(R)
@@ -170,11 +170,7 @@ def _finish_signatures(R: dec.Point, s_sum, r_x, y: dec.Point, m_arr):
         s_final[b] = sv
         recid[b] = rec
     y_host = dec.points_to_host(y)
-    sig_valid = np.asarray([
-        y_host[b] is not None
-        and hec.ecdsa_verify(y_host[b], int(m_arr[b]) % Q, int(r_x[b]), int(s_final[b]))
-        for b in range(S)
-    ])
+    sig_valid = np.asarray(hec.ecdsa_verify_batch(y_host, np.mod(m_arr, Q), r_x, s_final))
     return s_final, recid, sig_valid
 
 

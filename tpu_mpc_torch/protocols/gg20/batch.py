@@ -647,8 +647,8 @@ class SignResult20:
 
 
 def sign_online(off: OfflineState, m_int, corrupt: dict | None = None) -> SignResult20:
-    """Phase 7: one-round online signing.  Every signature is checked with
-    the pure-python ECDSA verifier (host/ec.py:ecdsa_verify).
+    """Phase 7: one-round online signing.  Every signature is checked by
+    the batched ECDSA verifier (host/ec.py:ecdsa_verify_batch).
     corrupt={"step": 7, "parties": spec} doubles those parties' s_i."""
     S = off.k.shape[0]
     m_arr = np.broadcast_to(np.asarray(m_int, dtype=object), (S,))

@@ -12,8 +12,9 @@ parties' round functions are array ops over the session axis (the MPC
 boundary is a host-side data move).  On the card: Paillier modexps, the
 correct-key, composite-dlog and PDL-with-slack proofs and the CRT
 decryption run through K1; points through K3 (GLV ladder), K4 (fixed-base
-comb) and K5 (to_affine).  Signatures are checked by the pure-python ECDSA
-oracle (host/ec.py:ecdsa_verify), where the reference calls OpenSSL.
+comb) and K5 (to_affine).  Signatures are checked by the batched ECDSA
+verifier (host/ec.py:ecdsa_verify_batch), which gives the answers of the
+reference's OpenSSL verifier.
 Every entry point takes `device` (default "cuda") or runs on the device of
 the key it is given.
 """
