@@ -2,7 +2,8 @@
 """Chip smoke test of tpu_mpc_torch, the PyTorch/CUDA port, on one NVIDIA card.
 
     python3 chip_smoke.py            (from the repository root; needs one card)
-    python3 chip_smoke.py --host-profile   (also prints a cProfile of one pass)
+    python3 chip_smoke.py --host-profile   (also prints a cProfile of one S = 128
+                                            tables pass and of each S = 4096 pass)
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   every CUDA kernel from tpu_mpc_torch/csrc/ (one nvcc per
@@ -39,9 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
              S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
              randomizer tables, the default on the card) and "uniform" (no
-             tables); one warm-up pass each, then timed passes of
-             offline_stage + sign_online in the order uniform, tables,
-             tables, uniform.  The first K3/K4/K5 launch at each shape of
+             tables); one warm-up pass each, then one timed pass of
+             offline_stage + sign_online each, uniform then tables.  The
+             first K3/K4/K5 launch at each shape of
              the warm-up passes is held against its plain version on its
              inputs.  Every signature must verify under the batched
              verifier (host/ec.py:ecdsa_verify_batch); every kernel must
@@ -58,16 +59,31 @@ Phases (any failure exits non-zero and prints no result line):
              recid) equal to the tables warm-up pass, only the reference's
              kinds logged, the TOTAL count equal to the rows; prints
              profile_summary().
-  5. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
+  5. scale   the same key tiled to S = 4096 sessions, bench.py's default S,
+             one pass in each of bench.py:main's configurations under
+             SessionRng(SCALE_SEED): "tables" (the default: tables, batch
+             verification on) and "refexact" (TPU_MPC_TORCH_BATCH_VERIFY=0,
+             TPU_MPC_TORCH_ENC_TABLES=0: every proof verified on its own,
+             uniform randomizers; no batched check may run, K2 may not
+             launch).  Every offline check holds, all 4096 signatures pass
+             ecdsa_verify_batch and 64 of them ecdsa_verify; the first launch
+             at each shape keeps 64 lanes (the first and the last 8, the rest
+             spread), which are held after the pass against python: K1 and K2
+             against pow() and products of pow(), K3 and K4 against the host
+             EC, K5 against python's inverse (the plain versions are far too
+             slow at these shapes).  Prints each pass's seconds, sig/s,
+             kernel ms and launches, launch shapes, each shape's ms and
+             bound, and peak card memory, beside the card's name and limit.
+  6. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
              sessions interleaved (session s on key group s % 8), tables
              configuration with the tables compressed at 8 key sets behind a
              gmap: K2 over the key's 24 flattened table groups, then one
              warm-up pass, both with every K1-K5 launch shape held against
-             its plain version; two timed passes, which must launch all five
+             its plain version; one timed pass, which must launch all five
              kernels and take the G = 8 batch verification with no
-             per-session fallback; every signature verifies under its own
-             group's y.
-  6. blame   GG20 identifiable aborts on the slice's tables key (S = 32,
+             per-session fallback; every signature of the warm-up pass
+             verifies under its own group's y.
+  7. blame   GG20 identifiable aborts on the slice's tables key (S = 16,
              signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
              (step 6) or the committed g_gamma ("decommit") of per-session
              corruption matrices, a clean offline_stage with s_i corrupted
@@ -76,13 +92,13 @@ Phases (any failure exits non-zero and prints no result line):
              exactly in the corrupted sessions, honest sessions verify; every
              K1-K5 launch shape held against its plain version; prints each
              blame function's seconds and the host Paillier open loop's;
-  7. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
+  8. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
              every signer pair reconstructs sum u, every launch shape held),
              then GG18 sign at S = 128 on the slice's tables key for the
              signer subsets [0, 1], [1, 2], [0, 2] (one warm-up pass with the
              holds, then one timed pass each): every signature verifies with
              low s; prints the prime-search seconds and sig/s.
-  8. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
+  9. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
              Paillier and N~, each session its own key (no tables, no K2):
              keygen (every ok, y = (x1 x2) G), sign of MSG_2P (a warm-up
              pass with the holds, a timed pass; every signature verifies
@@ -92,10 +108,10 @@ Phases (any failure exits non-zero and prints no result line):
              rejected); every launch shape held against its plain version;
              prints keygen's prime search, kernel and other seconds, sig/s,
              the refresh and PDL seconds, and per kernel ms and launches;
-  9. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
+ 10. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
              MSG_2P, host only: valid, low s, no kernel launched; prints
              the host seconds.
- 10. runtime the GG20 state machines in this process on the card, replaying
+ 11. runtime the GG20 state machines in this process on the card, replaying
              the JAX package's transcript tests/gpu/fixtures/runtime_768.json
              (run_simulation over three Gg20Keygen at 768 bits, an offline
              stage and sign_manual): every message string and output equal
@@ -108,19 +124,22 @@ Phases (any failure exits non-zero and prints no result line):
              shares reconstruct, equal valid low-s signatures).  Every child
              must exit 0 on the card with K1, K3, K4, K5 launched; prints the
              walls and one process's import-torch-and-CUDA-context time.
- 11. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
+ 12. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
              under sessions_mesh() (every visible card), under a mesh that
              repeats the card 4 times, and over two real cards where there
              are two: a warm-up pass holding every K1-K5 piece shape against
              its plain version and a timed pass, each with (r, s, recid)
              equal, bit for bit, to the slice's unsharded pass, the timed
-             one logged beside the slice's; then a one-rank NCCL group in this
+             one logged beside the slice's; one uniform pass under
+             sessions_mesh(), equal to the slice's unsharded uniform warm-up
+             pass; then a one-rank NCCL group in this
              process (TPU_MPC_TORCH_DISTRIBUTED=1): ModCtx.pow and
              mul_generator + to_affine over the mesh of ranks against python
              pow and the host EC; prints the passes' seconds and launches.
 Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
-launches_multitenant: the first timed multi-tenant pass; launches_blame:
+launches_scale_tables, launches_scale_refexact: the scale phase's passes;
+launches_multitenant: the timed multi-tenant pass; launches_blame:
 the blame phase; launches_gg18: the timed GG18 [0, 1] pass;
 launches_lindell17: the lindell17 phase; launches_runtime: the runtime
 phase's replay; launches_sharding: the timed pass under the 4-entry mesh,
@@ -144,9 +163,9 @@ import time
 S_SESSIONS = 128
 SLICE_SEED = 0xC41B                  # the slice's SessionRng seed
 # blame's sessions: its host Paillier opens (~0.24 s each on the card's host)
-# grow with S, so it runs at a quarter of the slice's S to keep the whole
-# run in time (64 until the sharding phase came)
-BLAME_S = 32
+# grow with S, so it runs at an eighth of the slice's S to keep the whole
+# run in time (64 until the sharding phase came, 32 until the scale phase)
+BLAME_S = 16
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
 EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4/K5 lane counts off their 8-, 16-, 32-lane blocks
@@ -189,10 +208,14 @@ def require(ok, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def _events_ms(fn, reps: int) -> float:
+def _events_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device ms of `reps` calls of fn, after one warm-up call (warm:
+    False where fn just ran on the same inputs, as a plain version does in
+    the exactness check before its timing)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -235,6 +258,58 @@ def _k1_bound(par, lanes, ne2, x, e, rows, dev):
               + cs["planes"].numel() + 8 * lanes * par.Lout)
     bms, bby = _bound(nbytes, imad, u8)
     return bms, bby, _bound(nbytes, old)[0]
+
+
+def launch_bound(name, a):
+    """(bound ms, "bytes" or "operations", second bound ms) of one launch of
+    kernel `name` on the wrapper's arguments `a`.  The second bound is K1's
+    and K2's IMAD-only bound, K5's divstep bound (K5_DIVSTEP_OPS), and K3's
+    and K4's bound again.  K2 and K4 count the table entries this launch's
+    digits touch (a synchronisation)."""
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.modctx import k2_montmuls, rns_work
+    from tpu_mpc_torch.core.rns import RnsParams
+
+    if name == "K1":
+        return _k1_bound(RnsParams(a[3]), a[0].shape[0], a[1].shape[1], *a[:3], a[0].device)
+    if name == "K2":
+        e, grow, rows, tabs, nwins, woffs, nbits = a[:7]
+        par, B = RnsParams(nbits), e.shape[0]
+        u8, imad, old = rns_work(par, k2_montmuls(nwins), B, prologue=False)
+        # table entries this run's digits touch (per base: window, digit, group)
+        touched = 0
+        for t_, nwin, woff in zip(tabs, nwins, woffs):
+            j = torch.arange(nwin, device=e.device)
+            dig = (e[:, woff + j // 8] >> (4 * (j % 8))) & 15
+            key = (j * 16 + dig) * t_.shape[2] + grow[:, None]
+            touched += int(torch.unique(key).numel())
+        cs = pr.dev_consts(par, e.device)
+        nbytes = (2 * touched * par.CH + 2 * rows.numel() + 4 * e.numel() + 4 * grow.numel()
+                  + 4 * cs["flat32"].numel() + cs["planes"].numel() + 8 * B * par.Lout)
+        bms, bby = _bound(nbytes, imad, u8)
+        return bms, bby, _bound(nbytes, old)[0]
+    n = a[0].shape[0]
+    if name == "K3":
+        P, DG, NEG = a[:3]
+        ns = DG.shape[1]
+        # multiply-adds per lane: per base jac_in and a 14-add table; 33
+        # windows of 4 doublings, ns additions and ns/2 beta multiplies; jac_out
+        imad = n * ((ns // 2) * (JAC_IO + 14 * RCB_ADD)
+                    + 33 * (4 * RCB_DBL + ns * RCB_ADD + (ns // 2) * FE_MUL) + JAC_IO)
+        bms, bby = _bound(2 * (P.numel() + n * 48) + DG.numel() + NEG.numel(), imad)
+        return bms, bby, bms
+    if name == "K4":
+        dg = a[0]
+        # the table entries these digits touch, 64 B each (x, y)
+        touched = int(torch.unique(dg + 256 * torch.arange(32, device=dg.device)).numel())
+        bms, bby = _bound(dg.numel() + 2 * n * 48 + 64 * touched, n * (32 * RCB_ADD + JAC_IO))
+        return bms, bby, bms
+    nbytes = 2 * n * (48 + 32)
+    bms, bby = _bound(nbytes, n * K5_CHAIN_OPS)
+    # the divstep kernel's own INT32 operations (K5_DIVSTEP_OPS)
+    return bms, bby, _bound(nbytes, n * K5_DIVSTEP_OPS)[0]
 
 
 def check_k1(dev, rnd):
@@ -303,7 +378,7 @@ def check_k1(dev, rnd):
                 line = f"K1 {bits}b lanes={lanes} per_lane={per_lane} reduce={reduce}: exact"
                 if per_lane and not reduce:
                     ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, emit), 3)
-                    pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, emit), 1)
+                    pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, emit), 1, warm=False)
                     bms, bby, ims = _k1_bound(par, lanes, e.shape[1], x, e, rows, dev)
                     line += (f"; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.4f} ms "
                              f"({bby}), IMAD bound {ims:.4f} ms")
@@ -395,7 +470,7 @@ def _k1_shape(dev, rnd, bits, B, ebits, per_mod, emits, what):
         require(int(got[i]) == pow(int(base[i]), int(expo[i]), int(n_l[i])),
                 f"K1 {bits}b lanes={B} {ebits}-bit exponents: lane {i} != python pow")
     ms = _events_ms(lambda: pr.exp_call(x, e, rows, bits, True), 3)
-    pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, True), 1)
+    pms = _events_ms(lambda: pr.exp_plain(x, e, rows, bits, True), 1, warm=False)
     bms, bby, ims = _k1_bound(par, B, e.shape[1], x, e, rows, dev)
     log(f"K1 {bits}b lanes={B} ({B // per_mod} moduli) {ebits}-bit exponents, {what}: exact "
         f"against plain and python pow; kernel {ms:.3f} ms, plain {pms:.1f} ms, bound "
@@ -424,9 +499,8 @@ def check_k2(dev, rnd):
     import torch
 
     from tpu_mpc_torch.core import pallas_rns as pr
-    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
-    from tpu_mpc_torch.core.modctx import ModCtx, ebits_class, k2_montmuls, rns_work
-    from tpu_mpc_torch.core.rns import RnsLazy, RnsParams
+    from tpu_mpc_torch.core.modctx import ModCtx, ebits_class
+    from tpu_mpc_torch.core.rns import RnsParams
 
     lanes = K2_LANES
     cases = []
@@ -480,7 +554,6 @@ def check_k2(dev, rnd):
 
     worst, entry = 0, None
     for name, bits, mc, T, exps, ebs, gm, ref in cases:
-        par = RnsParams(bits)
         # the wrapper's inputs, exactly as fixed_prod_dispatch builds them
         # (lanes sorted by group row)
         cap = {}
@@ -509,21 +582,9 @@ def check_k2(dev, rnd):
                 want = want * pow(int(b2), int(flat[1][i]), int(m)) % int(m)
             require(int(got[i]) == want, f"K2 {name} lane {i} != python pow")
         ms = _events_ms(lambda: pr.fixed_call(*args), 3)
-        pms = _events_ms(lambda: pr.fixed_plain(*args), 1)
+        pms = _events_ms(lambda: pr.fixed_plain(*args), 1, warm=False)
         B = e.shape[0]
-        u8, imad, old = rns_work(par, k2_montmuls(nwins), B, prologue=False)
-        # table entries this run's digits touch (per base: window, digit, group)
-        touched = 0
-        for t_, nwin, woff in zip(tabs_k, nwins, woffs):
-            j = torch.arange(nwin, device=dev)
-            dig = (e[:, woff + j // 8] >> (4 * (j % 8))) & 15
-            key = (j * 16 + dig) * t_.shape[2] + grow[:, None]
-            touched += int(torch.unique(key).numel())
-        cs = pr.dev_consts(par, dev)
-        nbytes = (2 * touched * par.CH + 2 * rows.numel() + 4 * e.numel() + 4 * grow.numel()
-                  + 4 * cs["flat32"].numel() + cs["planes"].numel() + 8 * B * par.Lout)
-        bms, bby = _bound(nbytes, imad, u8)
-        ims = _bound(nbytes, old)[0]
+        bms, bby, ims = launch_bound("K2", args)
         log(f"K2 {name} {bits}b lanes={B} windows={nwins}: exact; kernel {ms:.3f} ms, "
             f"plain {pms:.1f} ms, bound {bms:.4f} ms ({bby}), IMAD bound {ims:.4f} ms")
         if name == "h1h2":
@@ -627,11 +688,6 @@ def check_ec(dev, rnd):
     from tpu_mpc_torch.host import ec as hec
 
     B = EC_LANES
-    # multiply-adds per lane: per base jac_in and a 14-add table; 33 windows
-    # of 4 doublings, ns additions and ns/2 beta multiplies; jac_out
-    imad_k3 = lambda ns, n: n * ((ns // 2) * (JAC_IO + 14 * RCB_ADD)
-                                 + 33 * (4 * RCB_DBL + ns * RCB_ADD + (ns // 2) * FE_MUL)
-                                 + JAC_IO)
     res = {}
     # K3, ns = 2 and 4: lane 0 an infinity base, lane 1 k = 0; exact at lane
     # counts that are not a multiple of the 8-lane block and at the timed
@@ -664,8 +720,7 @@ def check_ec(dev, rnd):
             if n not in K3_TIMED:
                 continue
             ms = _events_ms(lambda: pe.ladder_call(P, DG, NEG), 3)
-            bms, bby = _bound(2 * (P.numel() + n * 48) + DG.numel() + NEG.numel(),
-                              imad_k3(ns, n))
+            bms, bby, _ = launch_bound("K3", (P, DG, NEG))
             if n != B:
                 log(f"K3 ns={ns} lanes={n}: exact; kernel {ms:.3f} ms, bound {bms:.5f} ms")
                 continue
@@ -676,7 +731,7 @@ def check_ec(dev, rnd):
                 if ns == 4:
                     want = hec.add(want, hec.mul(ks[nmax + i], hec.mul(int(pk[nmax + i]))))
                 require(got[i] == want, f"K3 ns={ns} lane {i} != host oracle")
-            pms = _events_ms(lambda: pe.ladder_plain(P, DG, NEG), 1)
+            pms = _events_ms(lambda: pe.ladder_plain(P, DG, NEG), 1, warm=False)
             log(f"K3 ns={ns} lanes={n}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
                 f"bound {bms:.5f} ms")
             if ns == 2:
@@ -712,11 +767,8 @@ def check_ec(dev, rnd):
                                            "little"), base) for i in range(4)]
             require(got[0] is None and got == want, f"K4 {name} lanes={n} != host oracle")
             ms = _events_ms(lambda: pe.comb_call(dg, tab, planes), 3)
-            pms = _events_ms(lambda: pe.comb_plain(dg, tab), 1)
-            # the table entries these digits touch, 64 B each (x, y)
-            touched = int(torch.unique(dg + 256 * torch.arange(32, device=dev)).numel())
-            bms, bby = _bound(dg.numel() + 2 * n * 48 + 64 * touched,
-                              n * (32 * RCB_ADD + JAC_IO))
+            pms = _events_ms(lambda: pe.comb_plain(dg, tab), 1, warm=False)
+            bms, bby, _ = launch_bound("K4", (dg, tab, planes))
             log(f"K4 {name} lanes={n}: exact; kernel {ms:.3f} ms, plain {pms:.1f} ms, "
                 f"bound {bms:.5f} ms")
             if n != B:
@@ -764,11 +816,8 @@ def check_ec(dev, rnd):
         require(bool(inf[0]) and bool(inf[3]) and not bool(inf[2]), "K5 infinity flags wrong")
         require((as_int(x[2]), as_int(y[2])) == hec.mul(int(pk[2])), "K5 != host oracle")
         ms = _events_ms(lambda: pe.affine_call(P5), 3)
-        pms = _events_ms(lambda: pe.affine_plain(P5), 1)
-        nbytes = 2 * n * (48 + 32)
-        bms, bby = _bound(nbytes, n * K5_CHAIN_OPS)
-        # the divstep kernel's own INT32 operations (K5_DIVSTEP_OPS)
-        dms = _bound(nbytes, n * K5_DIVSTEP_OPS)[0]
+        pms = _events_ms(lambda: pe.affine_plain(P5), 1, warm=False)
+        bms, bby, dms = launch_bound("K5", (P5,))
         log(f"K5 lanes={n}: exact (Z = 0 and edge Z lanes); kernel {ms:.4f} ms, plain "
             f"{pms:.1f} ms, bound {bms:.5f} ms, divstep bound {dms:.5f} ms")
         if n == B:
@@ -817,20 +866,28 @@ def launch_shape(name, a, kw) -> str:
     return f"{name} lanes={a[0].shape[0]}"
 
 
+# every launch shape of every instrumented call so far (all phases)
+SEEN_SHAPES: set = set()
+
+
 class Instrument:
     """Patches the kernels' piece launchers (_wrappers) for the life of a
     `with` block.
 
     hold: the kernels whose first call at each launch shape not yet in
     `held` is held exactly against the plain version on the same inputs
-    (the hold runs outside the events).  Every call of every kernel is
+    (the hold runs outside the events).  sampled: where given, the first
+    call at each launch shape not yet in it keeps SAMPLE_LANES of its
+    lanes, inputs and output, on the card (`samples`; check_samples holds
+    them against python after the block).  Every call of every kernel is
     counted by shape in `by_shape` and timed by CUDA events on the stream
     around the kernel call (no extra synchronisation): `spans[K]`, and K1
     also by width under "K1 <bits>b"."""
 
-    def __init__(self, held: set, hold=()):
-        self.held, self.hold = held, set(hold)
-        self.spans, self.by_shape, self.new_holds = {}, {}, []
+    def __init__(self, held: set, hold=(), sampled: set | None = None):
+        self.held, self.hold, self.sampled = held, set(hold), sampled
+        self.spans, self.by_shape, self.new_holds, self.samples = {}, {}, [], []
+        self.shape_spans = {}
 
     def _wrap(self, name, fn, plain):
         import torch
@@ -845,6 +902,12 @@ class Instrument:
             if name == "K1":
                 self.spans.setdefault(f"K1 {a[3]}b", []).append(ev)
             self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+            self.shape_spans.setdefault(shape, []).append(ev)
+            if self.sampled is not None and shape not in self.sampled:
+                self.sampled.add(shape)
+                self.samples.append(take_sample(name, shape, shape not in SEEN_SHAPES,
+                                                a, kw, out))
+            SEEN_SHAPES.add(shape)
             if name in self.hold and shape not in self.held:
                 want = plain(*a, **kw)
                 err = _maxerr(out, want)
@@ -871,6 +934,11 @@ class Instrument:
     def busy(self) -> dict:
         """Device ms per kernel (and K1 per width); call after a sync."""
         return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
+
+    def shape_ms(self, shape) -> float:
+        """Mean device ms of a launch at `shape`; call after a sync."""
+        v = self.shape_spans[shape]
+        return sum(a.elapsed_time(b) for a, b in v) / len(v)
 
 
 class _Timed:
@@ -1027,13 +1095,13 @@ def run_slice(dev, material, host_profile: bool = False):
     benches/bench_key_2048.json): load each key set (the tables one builds
     its h1/h2 and randomizer tables), one warm-up pass each (the first
     K3/K4/K5 call at each shape held exactly against its plain version),
-    then timed passes in the order uniform, tables, tables, uniform.  Kernel
+    then one timed pass each, uniform then tables.  Kernel
     counts are set to 0 just before each timed pass and read just after it;
     the tables passes must launch all five kernels, the uniform ones every
-    kernel but K2.  Returns (the first timed tables pass's launches, the
-    tables key at S = 128, its 1-session key, the (r, s, recid) of the
-    tables warm-up pass, the first under a fresh SessionRng(SLICE_SEED), and
-    the first timed tables pass's seconds)."""
+    kernel but K2.  Returns (the first timed tables pass's launches, and per
+    configuration the key at S = 128, its 1-session key and the (r, s,
+    recid) of its warm-up pass, the first under a fresh
+    SessionRng(SLICE_SEED); then the first timed tables pass's seconds)."""
     import torch
 
     from tpu_mpc_torch import kernels
@@ -1081,8 +1149,10 @@ def run_slice(dev, material, host_profile: bool = False):
             f"{S_SESSIONS} signatures verify; K3/K4/K5 exact against plain at the main "
             f"path's shapes so far: {', '.join(sorted(held))}")
 
+    # one timed pass a configuration (uniform, tables; a second of each ran
+    # until the scale phase took their time)
     runs, timed_sig = [], {}
-    for cfg in ("uniform", "tables", "tables", "uniform"):
+    for cfg in ("uniform", "tables"):
         torch.cuda.synchronize()
         kernels.reset_launches()
         with Instrument(held) as inst:
@@ -1104,9 +1174,6 @@ def run_slice(dev, material, host_profile: bool = False):
         require(cfg == "tables" or launches["K2"] == 0, "slice[uniform]: K2 was launched")
         require(set(ec_shapes) <= held, f"slice[{cfg}]: K3/K4/K5 shapes never held against "
                 f"plain: {sorted(set(ec_shapes) - held)}")
-    for cfg in CONFIGS:
-        rates = [S_SESSIONS / dt for c, _, _, dt in runs if c == cfg]
-        log(f"slice[{cfg}]: sig/s over its two timed passes " + ", ".join(f"{r:.2f}" for r in rates))
     check_verifiers(keys["tables"], timed_sig["tables"])
     profiled_pass(keys["tables"], first["tables"])
     if host_profile:
@@ -1124,7 +1191,7 @@ def run_slice(dev, material, host_profile: bool = False):
             + buf.getvalue())
     # the main path is the tables configuration: its first timed pass
     t_launches, t_dt = next((r[1], r[3]) for r in runs if r[0] == "tables")
-    return t_launches, keys["tables"], key1s["tables"], first["tables"], t_dt
+    return t_launches, keys, key1s, first, t_dt
 
 
 def check_verifiers(key, sig):
@@ -1228,7 +1295,338 @@ def _sig_ints(sig):
 
 
 # --------------------------------------------------------------------------
-# phase 5: multi-tenant signing
+# phase 5: the main path at the JAX package's own scale
+# --------------------------------------------------------------------------
+
+SCALE_S = 4096                       # bench.py:62, the JAX package's default S
+SCALE_SEED = 0x5CA1E
+BV_ENV = "TPU_MPC_TORCH_BATCH_VERIFY"
+# bench.py:main's two passes: the default (tables, batch verification on at
+# S >= 8: the variable unset) and the reference-exact companion pass
+# (bench.py:146-147: per-proof verification, uniform randomizers)
+SCALE_CONFIGS = {"tables": {ENC_ENV: "1", BV_ENV: None},
+                 "refexact": {ENC_ENV: "0", BV_ENV: "0"}}
+SAMPLE_LANES = 64                    # lanes of a launch held against python
+SIG_SAMPLE = 64                      # signatures of a pass also through ecdsa_verify
+
+
+def sample_lanes(B: int, n: int = SAMPLE_LANES) -> list:
+    """n lanes of a B-lane launch (all when B <= n): the first 8, the last 8
+    (the first and the last lane tile of K1-K3) and the rest spread evenly
+    between them."""
+    if B <= n:
+        return list(range(B))
+    ends = set(range(8)) | set(range(B - 8, B))
+    rest = n - len(ends)
+    mid = {8 + (B - 16) * (2 * j + 1) // (2 * rest) for j in range(rest)}
+    out = sorted(ends | mid)
+    return out if len(out) == n else sorted(set(out) | set(range(8, 8 + n - len(out))))
+
+
+def take_sample(name, shape, new, a, kw, out) -> dict:
+    """SAMPLE_LANES lanes of a launch's inputs and output, gathered on the
+    card (no synchronisation), for check_samples."""
+    import torch
+
+    a = list(a)
+    B = out.shape[0]
+    lanes = sample_lanes(B)
+    idx = torch.as_tensor(lanes, device=out.device)
+    pick = lambda t: t.index_select(0, idx) if t.shape[0] == B else t[:1]
+    # the whole launch's arguments stay referenced for its bound (launch_bound)
+    smp = {"name": name, "shape": shape, "new": new, "lanes": lanes, "out": pick(out),
+           "args": a}
+    if name == "K1":
+        x, e, rows, nbits = a[:4]
+        emit = kw.get("emit_planes", a[4] if len(a) > 4 else True)
+        smp.update(x=pick(x), e=pick(e), rows=pick(rows), nbits=nbits, emit=emit)
+    elif name == "K2":
+        e, grow, rows, tables, nwins, woffs, nbits = a[:7]
+        g = pick(grow).long()
+        # each base's entry T[0][1] (its base x, in Montgomery form) per lane
+        smp.update(e=pick(e), rows=pick(rows), nbits=nbits, nwins=list(nwins),
+                   woffs=list(woffs), bases=[T[0, 1].index_select(0, g) for T in tables])
+    elif name == "K3":
+        smp.update(pts=pick(a[0]), dg=pick(a[1]), neg=pick(a[2]))
+    elif name == "K4":
+        from tpu_mpc_torch.ec import pallas_ec as pe
+
+        base = next(k[0] for k, v in pe._COMB8_CACHE.items() if v[0] is a[1])
+        smp.update(dg=pick(a[0]), base=base)
+    else:
+        smp.update(pts=pick(a[0]))
+    return smp
+
+
+def _ints_of(t, bits: int) -> list:
+    """[n, L] tensor of `bits`-bit limbs (little-endian) -> n python ints."""
+    m = (1 << bits) - 1
+    return [sum((int(v) & m) << (bits * i) for i, v in enumerate(row)) for row in t.tolist()]
+
+
+_CRT: dict = {}
+
+
+def _crt(res: list, primes: tuple) -> int:
+    """The value below prod(primes) with residues `res`."""
+    if primes not in _CRT:
+        M = math.prod(primes)
+        _CRT[primes] = (M, [(M // p) * pow(M // p % p, -1, p) for p in primes])
+    M, c = _CRT[primes]
+    return sum(int(r) * ci for r, ci in zip(res, c)) % M
+
+
+def _jac_affine(X: int, Y: int, Z: int, P: int):
+    """Canonical Jacobian -> affine (None for Z = 0)."""
+    if Z == 0:
+        return None
+    zi = pow(Z, -1, P)
+    return X * zi * zi % P, Y * zi * zi * zi % P
+
+
+def lane_pow(job) -> bool:
+    """(modulus, [(base, exponent), ...], value the kernel gave): the
+    value equals the product of pow()."""
+    n, terms, got = job
+    want = 1
+    for b, e in terms:
+        want = want * pow(b, e, n) % n
+    return got == want
+
+
+def lane_ec(job) -> bool:
+    """([(scalar, affine point or None), ...], affine point the kernel gave):
+    it equals the sum of the scalar multiples (host/ec.py)."""
+    from tpu_mpc_torch.host import ec as hec
+
+    terms, got = job
+    want = None
+    for k, pt in terms:
+        if pt is not None:
+            want = hec.add(want, hec.mul(k, pt))
+    return got == want
+
+
+def _sample_jobs(smp) -> tuple:
+    """A sample -> (checker, per-lane jobs): K1 and K2 against pow() and
+    products of pow(), K3 and K4 against the host EC, K5 against python's
+    modular inverse (its jobs are already decided)."""
+    from tpu_mpc_torch.core.rns import RnsParams
+    from tpu_mpc_torch.ec.secp256k1 import GLV_LAMBDA
+    from tpu_mpc_torch.host import ec as hec
+
+    name = smp["name"]
+    cpu = {k: v.cpu() for k, v in smp.items() if hasattr(v, "cpu")}
+    if name in ("K1", "K2"):
+        par = RnsParams(smp["nbits"])
+        K, Kp = par.K, par.Kp
+        rows = cpu["rows"].tolist()
+        mods = []
+        for r in rows:
+            n = _crt(r[K:K + Kp], par.pB)
+            require(n % (1 << 16) == r[K + Kp], f"{smp['shape']}: a ctx row is not one modulus's")
+            mods.append(n)
+        mod = lambda i: mods[i if len(mods) > 1 else 0]
+        if name == "K1" and not smp["emit"]:
+            # big-Montgomery residues: the value below MA is x^e MA mod N
+            outs = [_crt(r[:K], par.pA) * pow(par.MA, -1, mod(i)) % mod(i)
+                    for i, r in enumerate(cpu["out"].tolist())]
+        else:
+            # exact column sums of 16-bit columns (core/rns.py:_rns_decode)
+            outs = [sum(int(c) << (16 * j) for j, c in enumerate(row)) % par.MA % mod(i)
+                    for i, row in enumerate(cpu["out"].tolist())]
+        ew = cpu["e"].tolist()
+        bases = [T.cpu().tolist() for T in smp.get("bases", ())]
+        word = lambda row, lo, nw: sum((int(v) & 0xFFFFFFFF) << (32 * j)
+                                       for j, v in enumerate(row[lo:lo + nw]))
+        jobs = []
+        for i, got in enumerate(outs):
+            if name == "K1":
+                terms = [(_ints_of(cpu["x"][i:i + 1], 16)[0], word(ew[i], 0, len(ew[i])))]
+            else:
+                terms = []
+                for T, nwin, woff in zip(bases, smp["nwins"], smp["woffs"]):
+                    xm = _crt(T[i][:K], par.pA)
+                    e = word(ew[i], woff, -(-nwin // 8)) & ((1 << (4 * nwin)) - 1)
+                    terms.append((xm * pow(par.MA, -1, mod(i)) % mod(i), e))
+            jobs.append((mod(i), terms, got))
+        return lane_pow, jobs
+    P = hec.P
+    jac = lambda row: _jac_affine(*_ints_of(row, 16), P)
+    outs = cpu["out"]
+    if name == "K5":
+        ok = []
+        for i, (X, Y, Z) in enumerate(_ints_of(r, 16) for r in cpu["pts"]):
+            zi = pow(Z or 1, -1, P)
+            ok.append(tuple(_ints_of(outs[i], 16)) == (X * zi * zi % P, Y * zi ** 3 % P))
+        return None, ok
+    jobs = []
+    for i in range(outs.shape[0]):
+        if name == "K3":
+            dg, neg = cpu["dg"][i].tolist(), cpu["neg"][i].tolist()
+            k = [sum(d << (4 * j) for j, d in enumerate(ds)) for ds in dg]
+            sgn = [-1 if v else 1 for v in neg]
+            terms = [((sgn[2 * m] * k[2 * m] + sgn[2 * m + 1] * GLV_LAMBDA * k[2 * m + 1])
+                      % hec.N, jac(cpu["pts"][i, m])) for m in range(len(k) // 2)]
+        else:
+            k = sum(d << (8 * w) for w, d in enumerate(cpu["dg"][i].tolist()))
+            terms = [(k % hec.N, smp["base"])]
+        jobs.append((terms, jac(outs[i])))
+    return lane_ec, jobs
+
+
+def check_samples(samples, pool) -> list:
+    """Holds every sampled launch against python on its SAMPLE_LANES lanes
+    (the jobs over `pool`, worker processes); any difference fails.
+    -> [(sample, lanes held)]."""
+    pending = []
+    for smp in samples:
+        fn, jobs = _sample_jobs(smp)
+        pending.append((smp, pool.map(fn, jobs, chunksize=4) if fn else jobs))
+    out = []
+    for smp, ok in pending:
+        ok = list(ok)
+        bad = [smp["lanes"][i] for i, v in enumerate(ok) if not v]
+        require(not bad, f"{smp['shape']}: lanes {bad[:8]} differ from python")
+        out.append((smp, len(ok)))
+    return out
+
+
+def run_scale(dev, key1s: dict, host_profile: bool = False) -> dict:
+    """GG20 2-of-3 signing at S = SCALE_S sessions on the slice's bench key
+    (key1s: its 1-session key per configuration, loaded by run_slice), one
+    pass in each of bench.py:main's configurations under
+    SessionRng(SCALE_SEED): "tables" (the default: tables, batch
+    verification) and "refexact" (TPU_MPC_TORCH_BATCH_VERIFY=0,
+    TPU_MPC_TORCH_ENC_TABLES=0: every proof verified on its own, uniform
+    randomizers).  Kernel counts are set to 0 just before each pass and read
+    just after: the tables pass must launch all five kernels, the
+    reference-exact one every kernel but K2, and run no batched check
+    (zk/batch_verify.py:STATS).  Every offline check must hold, every
+    signature verify under the pass's own ecdsa_verify_batch call (timed;
+    SIG_SAMPLE of them also under ecdsa_verify), and the first launch at
+    each shape keeps SAMPLE_LANES lanes that are held against python after
+    the pass.  Logs each pass's seconds, kernel ms and launches, launch
+    shapes, each shape's ms and bound, and peak card memory; host_profile:
+    each pass under cProfile, its top functions by own time printed after
+    it.  Returns each configuration's launches."""
+    import cProfile
+    import io
+    import multiprocessing
+    import pstats
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import secp256k1 as dec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.zk import batch_verify as bv
+
+    S = SCALE_S
+    card = card_line()
+    saved = {k: os.environ.get(k) for k in (ENC_ENV, BV_ENV)}
+    sampled, out = set(), {}
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(os.cpu_count() or 1,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            for cfg, env in SCALE_CONFIGS.items():
+                for k, v in env.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+                key = gg20.tile_key(key1s["tables" if env[ENC_ENV] == "1" else "uniform"], S)
+                bv.reset_stats()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                kernels.reset_launches()
+                prof = cProfile.Profile() if host_profile else None
+                with Instrument(set(), sampled=sampled) as inst, \
+                        _Timed(hec, "ecdsa_verify_batch") as vb:
+                    t = time.perf_counter()
+                    if prof:
+                        prof.enable()
+                    off = gg20.offline_stage(key, [0, 1], SessionRng(SCALE_SEED))
+                    torch.cuda.synchronize()
+                    t_off = time.perf_counter() - t
+                    sig = gg20.sign_online(off, MSG)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t
+                    if prof:
+                        prof.disable()
+                launches = dict(kernels.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+                stats = {"grouped": dict(bv.STATS["grouped"]),
+                         "per_session": bv.STATS["per_session"]}
+                bad = [k for k, v in off.debug_masks.items() if not bool(v.all())]
+                require(off.ok.all() and not bad, f"scale[{cfg}]: offline checks failed: {bad}")
+                require(sig.ok.all() and sig.sig_valid.all(), f"scale[{cfg}]: a signature failed")
+                want = [k for k in launches if cfg == "tables" or k != "K2"]
+                missing = [k for k in want if launches[k] == 0]
+                require(not missing, f"scale[{cfg}]: kernels not launched: {missing}")
+                if cfg == "tables":
+                    require(stats["grouped"] and not stats["per_session"],
+                            f"scale[tables]: the batched checks did not run alone: {stats}")
+                else:
+                    require(launches["K2"] == 0 and not stats["grouped"]
+                            and stats["per_session"] > 0,
+                            f"scale[refexact]: a batched check or K2 ran: {stats}, {launches}")
+                # sig_valid is the pass's one ecdsa_verify_batch call over all
+                # S signatures; a sample also through the single-signature oracle
+                require(vb.calls == 1 and sig.sig_valid.shape == (S,),
+                        f"scale[{cfg}]: {vb.calls} ecdsa_verify_batch calls in the pass")
+                y = dec.points_to_host(key.y)
+                picks = sample_lanes(S, SIG_SAMPLE)
+                require(all(hec.ecdsa_verify(y[b], MSG % hec.N, int(sig.r[b]), int(sig.s[b]))
+                            for b in picks), f"scale[{cfg}]: ecdsa_verify rejects a signature")
+                busy = inst.busy()
+                tot = sum(busy.get(k, 0.0) for k in launches)
+                log(f"scale[{cfg}] S={S} ({card}): pass {dt:.2f} s (offline {t_off:.2f} s, "
+                    f"online {dt - t_off:.2f} s), {S / dt:.2f} sig/s; every offline check "
+                    f"holds; all {S} signatures pass ecdsa_verify_batch ({vb.secs:.2f} s of the "
+                    f"pass), {len(picks)} also ecdsa_verify; batch verification "
+                    f"{json.dumps(stats)}; " + _kernel_summary(inst, launches)
+                    + f" ({100 * tot / (dt * 1e3):.1f}% of the pass); peak card memory "
+                    f"{peak / 2 ** 30:.2f} GiB, {(peak - base) / 2 ** 30:.2f} GiB over the "
+                    f"{base / 2 ** 30:.2f} GiB allocated before the pass")
+                log(f"scale[{cfg}]: launch shapes "
+                    + json.dumps(dict(sorted(inst.by_shape.items()))))
+                if prof:
+                    buf = io.StringIO()
+                    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(25)
+                    log(f"scale[{cfg}]: host profile of the pass (cProfile, by own time)\n"
+                        + buf.getvalue())
+                t = time.perf_counter()
+                held = check_samples(inst.samples, pool)
+                log(f"scale[{cfg}]: {len(held)} launch shapes held against python on up to "
+                    f"{SAMPLE_LANES} lanes each ({sum(smp['new'] for smp, _ in held)} new at "
+                    f"S={S}) in {time.perf_counter() - t:.2f} s")
+                for smp, k in held:
+                    bms, bby, ims = launch_bound(smp["name"], smp["args"])
+                    sh = smp["shape"]
+                    second = {"K1": "IMAD", "K2": "IMAD", "K5": "divstep"}.get(smp["name"])
+                    log(f"scale[{cfg}]: {sh}{' (new)' if smp['new'] else ''}: {k} lanes equal "
+                        f"python; {inst.by_shape[sh]} launches, kernel {inst.shape_ms(sh):.4f} "
+                        f"ms a launch, bound {bms:.5f} ms ({bby})"
+                        + (f", {second} bound {ims:.5f} ms" if second else ""))
+                out[cfg] = launches
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    log(f"scale: the phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6: multi-tenant signing
 # --------------------------------------------------------------------------
 
 MT_GROUPS = 8
@@ -1240,11 +1638,11 @@ def run_multitenant(dev, res16):
     the tables stay compressed at the 8 key sets behind a gmap.  First K2
     over the key's 24 flattened table groups (8 key sets x 3 parties), then
     one warm-up pass, both with every K1-K5 launch shape held against its
-    plain version on its first call; then two timed passes, kernel counts
-    set to 0 just before each and read just after.  Each pass must launch
-    all five kernels and take the G = 8 batch verification with no
-    per-session fallback; every signature must verify under its own group's
-    y."""
+    plain version on its first call; then one timed pass, kernel counts
+    set to 0 just before it and read just after.  Each pass must launch all
+    five kernels and take the G = 8 batch verification with no per-session
+    fallback; every signature of the warm-up pass must verify under its own
+    group's y."""
     import numpy as np
     import torch
 
@@ -1314,28 +1712,26 @@ def run_multitenant(dev, res16):
     log(f"multitenant: warm-up pass {dt:.2f} s (offline {t_off:.2f} s); all {S} signatures "
         f"verify under their own group's y; batch verification {json.dumps(stats)}; "
         f"held against plain: {', '.join(inst.new_holds)}")
-    first = None
-    for i in range(2):
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        with Instrument(held) as inst:
-            dt, t_off, stats = one_pass(i == 1)
-        launches = dict(kernels.LAUNCHES)
-        missing = [k for k in launches if launches[k] == 0]
-        require(not missing, f"multitenant: kernels not launched: {missing}")
-        require(set(inst.by_shape) <= held, f"multitenant: launch shapes never held against "
-                f"plain: {sorted(set(inst.by_shape) - held)}")
-        k2 = {k: v for k, v in inst.by_shape.items() if k.startswith("K2")}
-        log(f"multitenant: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
-            f"{dt - t_off:.2f} s), {S / dt:.2f} sig/s, G={G}, all {S} signatures verify; "
-            f"batch verification {json.dumps(stats)}; " + _kernel_summary(inst, launches)
-            + f"; K2 launches by shape {json.dumps(dict(sorted(k2.items())))}")
-        first = first or launches
-    return first
+    # one timed pass (a second ran until the scale phase took its time)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Instrument(held) as inst:
+        dt, t_off, stats = one_pass(False)
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in launches if launches[k] == 0]
+    require(not missing, f"multitenant: kernels not launched: {missing}")
+    require(set(inst.by_shape) <= held, f"multitenant: launch shapes never held against "
+            f"plain: {sorted(set(inst.by_shape) - held)}")
+    k2 = {k: v for k, v in inst.by_shape.items() if k.startswith("K2")}
+    log(f"multitenant: timed pass {dt:.2f} s (offline {t_off:.2f} s, online "
+        f"{dt - t_off:.2f} s), {S / dt:.2f} sig/s, G={G}, all {S} signatures verify; "
+        f"batch verification {json.dumps(stats)}; " + _kernel_summary(inst, launches)
+        + f"; K2 launches by shape {json.dumps(dict(sorted(k2.items())))}")
+    return launches
 
 
 # --------------------------------------------------------------------------
-# phase 6: identifiable aborts (blame)
+# phase 7: identifiable aborts (blame)
 # --------------------------------------------------------------------------
 
 BLAME_PATTERNS = {5: [[], [0], [1], [0, 1]], 6: [[], [0], [1], [0, 1]],
@@ -1448,7 +1844,7 @@ def run_blame(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phase 7: GG18
+# phase 8: GG18
 # --------------------------------------------------------------------------
 
 GG18_KEYGEN = (16, 0x6618)          # S, SessionRng seed
@@ -1544,7 +1940,7 @@ def run_gg18(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phases 8 and 9: the two-party protocols
+# phases 9 and 10: the two-party protocols
 # --------------------------------------------------------------------------
 
 L17_S, L17_SEED = 64, 0x2017        # sessions, each with its own Paillier key and N~
@@ -1708,7 +2104,7 @@ def run_cclst19():
 
 
 # --------------------------------------------------------------------------
-# phase 10: the runtime (state machines, relays, CLI and GG18 clients)
+# phase 11: the runtime (state machines, relays, CLI and GG18 clients)
 # --------------------------------------------------------------------------
 
 RUNTIME_GOLDEN = os.path.join("tests", "gpu", "fixtures", "runtime_768.json")
@@ -1994,14 +2390,14 @@ def run_runtime_processes(repo, work) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 11: sessions-axis sharding
+# phase 12: sessions-axis sharding
 # --------------------------------------------------------------------------
 
 SHARD_ENTRIES = 4                    # the mesh that repeats the one card
 RANK_LANES = 16                      # lanes of the one-rank NCCL group's checks
 
 
-def run_sharding(dev, key, want, slice_dt) -> dict:
+def run_sharding(dev, keys, wants, slice_dt) -> dict:
     """GG20 tables passes of the slice's key at S = 128 under SessionRng
     (SLICE_SEED) under sessions_mesh() (every visible card), under a mesh
     that repeats this card SHARD_ENTRIES times, and, where the machine has
@@ -2009,10 +2405,13 @@ def run_sharding(dev, key, want, slice_dt) -> dict:
     warm-up pass holds every K1-K5 piece shape against its plain version on
     its first call, then a timed pass, counts set to 0 just before it and
     read just after, must launch all five kernels; every pass's (r, s,
-    recid) must equal `want`, the slice's unsharded tables warm-up pass's,
-    bit for bit.  The timed passes are logged beside `slice_dt`, the slice's
-    first unsharded timed tables pass.  Returns the timed pass's launches
-    under the repeated mesh."""
+    recid) must equal the slice's unsharded tables warm-up pass's
+    (wants["tables"]), bit for bit.  Then one uniform pass under
+    sessions_mesh(), which must launch every kernel but K2 and equal the
+    slice's unsharded uniform warm-up pass (wants["uniform"]).  The timed
+    passes are logged beside `slice_dt`, the slice's first unsharded timed
+    tables pass.  Returns the timed pass's launches under the repeated
+    mesh."""
     import torch
 
     from tpu_mpc_torch import kernels, sharding
@@ -2020,9 +2419,10 @@ def run_sharding(dev, key, want, slice_dt) -> dict:
     from tpu_mpc_torch.utils.rng import SessionRng
 
     os.environ[ENC_ENV] = "1"
+    key, want = keys["tables"], wants["tables"]
     S = key.S
 
-    def one_pass(label):
+    def one_pass(label, key=key):
         t = time.perf_counter()
         off = gg20.offline_stage(key, [0, 1], SessionRng(SLICE_SEED))
         sig = gg20.sign_online(off, MSG)
@@ -2065,6 +2465,24 @@ def run_sharding(dev, key, want, slice_dt) -> dict:
             f"held against plain in its warm-up: {', '.join(warm_holds)}")
         if label.startswith(f"{SHARD_ENTRIES} x"):
             out = launches
+    # the uniform configuration (no tables, uniform randomizers) under a mesh
+    os.environ[ENC_ENV] = CONFIGS["uniform"]
+    mesh = sharding.sessions_mesh()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        with sharding.use_mesh(mesh), Instrument(held) as inst:
+            got, dt = one_pass("uniform", keys["uniform"])
+    finally:
+        os.environ[ENC_ENV] = "1"
+    launches = dict(kernels.LAUNCHES)
+    require(got == wants["uniform"], "sharding[uniform]: (r, s, recid) differ from the "
+            "unsharded uniform pass's")
+    missing = [k for k in launches if k != "K2" and launches[k] == 0]
+    require(not missing and launches["K2"] == 0,
+            f"sharding[uniform]: kernels not launched {missing}, or K2 launched: {launches}")
+    log(f"sharding[uniform] {mesh}: (r, s, recid) of all {S} sessions equal the unsharded "
+        f"uniform pass's; pass {dt:.2f} s, {S / dt:.2f} sig/s; " + _kernel_summary(inst, launches))
     return out
 
 
@@ -2185,8 +2603,10 @@ def main() -> int:
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
 
     res16, material, kg_launches = run_keygen(dev, repo)
-    launches, key128, key1, slice_sig, slice_dt = run_slice(
-        dev, material, host_profile="--host-profile" in sys.argv[1:])
+    host_profile = "--host-profile" in sys.argv[1:]
+    launches, keys128, key1s, slice_sigs, slice_dt = run_slice(dev, material, host_profile)
+    key128, key1 = keys128["tables"], key1s["tables"]
+    scale_launches = run_scale(dev, key1s, host_profile)
     mt_launches = run_multitenant(dev, res16)
     held = set()
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
@@ -2200,7 +2620,7 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     run_runtime_processes(repo, work)
     t_shard = time.perf_counter()
-    sh_launches = run_sharding(dev, key128, slice_sig, slice_dt)
+    sh_launches = run_sharding(dev, keys128, slice_sigs, slice_dt)
     run_sharding_ranks(dev)
     log(f"sharding: the phase {time.perf_counter() - t_shard:.1f} s")
 
@@ -2220,7 +2640,10 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
-            "launches_keygen": kg_launches[name], "launches_multitenant": mt_launches[name],
+            "launches_keygen": kg_launches[name],
+            "launches_scale_tables": scale_launches["tables"][name],
+            "launches_scale_refexact": scale_launches["refexact"][name],
+            "launches_multitenant": mt_launches[name],
             "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
             "launches_lindell17": l17_launches[name],
             "launches_runtime": rt_launches[name],

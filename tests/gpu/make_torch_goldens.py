@@ -9,8 +9,8 @@ test_torch_ec.py, test_torch_rns.py, test_torch_fixed.py).
     JAX_PLATFORMS=cpu TPU_MPC_PALLAS=0 python tests/gpu/make_torch_goldens.py [name ...]
 
 (from the repository root; names: gg20_blame_768, gg18_768, lindell17_1024,
-pdl_576, gg20_slice_768, runtime_768, kernels_ec, kernels_rns,
-kernels_fixed, default all; on an 8-core CPU machine 299 s wall
+pdl_576, gg20_slice_768, gg20_ref_exact_768, runtime_768, kernels_ec,
+kernels_rns, kernels_fixed, default all; on an 8-core CPU machine 299 s wall
 for the first two, 100 s for lindell17_1024, 29 s for pdl_576 and 139 s
 for gg20_slice_768, most of it JAX compilation and the reference's keygen).
 pytest does not collect this file.  The tests run only the port against
@@ -28,6 +28,14 @@ forced (TPU_MPC_BATCH_VERIFY=1), in two configurations: "uniform"
 tables built on the key in both.  Per configuration: r, s, recid,
 sig_valid and the offline transcript's r_x, k, sigma_i, delta_i, msg_a_c,
 alpha, beta_g, miu; in "tables" also the resolved k and beta randomizers.
+
+tests/gpu/fixtures/gg20_ref_exact_768.json (tests/gpu/test_torch_ref_exact.py):
+the reference-exact configuration, per-proof verification and uniform
+randomizers (TPU_MPC_BATCH_VERIFY=0, TPU_MPC_ENC_TABLES=0), on the key and
+seed of gg20_slice_768 tiled to S = 8; two runs, "clean" and "step6" (sigma_i
+doubled for signer 1 of session 5 alone).  Per run: ok, bad_actors, the
+debug masks, the fields of gg20_slice_768, r, s, recid, sig_valid and the
+signing ok flags.
 
 tests/gpu/fixtures/gg20_blame_768.json: session 0 of
 tests/fixtures/gg20key_20_2_1_3_768.json tiled to S = 4, signers [0, 1], in
@@ -110,6 +118,8 @@ SEEDS = {"step5": 0xB105, "step6": 0xB106, "decommit": 0xB1DC, "clean": 0xB1C1}
 S_SLICE = 2
 SLICE_SEED = 0x5169
 SLICE_FIELDS = ("r_x", "k", "sigma_i", "delta_i", "msg_a_c", "alpha", "beta_g", "miu")
+S_REF_EXACT = 8
+REF_EXACT_CORRUPT = {"step": 6, "parties": [[1] if b == 5 else [] for b in range(S_REF_EXACT)]}
 DECOMMIT_PARTIES = [1]
 M_BLAME = int.from_bytes(hashlib.sha256(b"gg20 blame").digest(), "big")
 
@@ -259,6 +269,51 @@ def gg20_slice() -> dict:
             os.environ.pop("TPU_MPC_BATCH_VERIFY")
         else:
             os.environ["TPU_MPC_BATCH_VERIFY"] = batch_verify
+    return out
+
+
+def gg20_ref_exact() -> dict:
+    """The reference-exact configuration at S = 8: per-proof verification
+    (TPU_MPC_BATCH_VERIFY=0) and uniform randomizers (TPU_MPC_ENC_TABLES=0),
+    on gg20_slice's key and seed, tiled to S = 8, the smallest S at which
+    the default would batch.  Two runs from SessionRng(SLICE_SEED): "clean",
+    and "step6" with sigma_i doubled for signer 1 of session 5 alone (the
+    step seam's per-session form), which the reference names through the
+    session's checks."""
+    import numpy as np
+    from tpu_mpc.protocols.gg20 import batch as jg
+    from tpu_mpc.utils.rng import SessionRng
+
+    with open(KEY_FIXTURE) as f:
+        d = json.load(f)
+    key = {k: ([v[0]] * S_REF_EXACT if isinstance(v, list) else v) for k, v in d.items()}
+    key["S"] = S_REF_EXACT
+    m = int.from_bytes(hashlib.sha256(b"gg20 message").digest(), "big")
+    out = {"seed": SLICE_SEED, "S": S_REF_EXACT, "signers": SIGNERS, "m": str(m),
+           "bits": 768, "runs": {}}
+    saved = {k: os.environ.get(k) for k in ("TPU_MPC_BATCH_VERIFY", "TPU_MPC_ENC_TABLES")}
+    os.environ.update(TPU_MPC_BATCH_VERIFY="0", TPU_MPC_ENC_TABLES="0")
+    try:
+        jkey = _keycache()._decode(key)
+        for name, corrupt in (("clean", None), ("step6", REF_EXACT_CORRUPT)):
+            t = time.perf_counter()
+            off = jg.offline_stage(jkey, SIGNERS, SessionRng(SLICE_SEED), corrupt=corrupt)
+            sig = jg.sign_online(off, m)
+            run = {"corrupt": corrupt, **_state(off),
+                   "debug_masks": {k: np.asarray(v, dtype=bool).tolist()
+                                   for k, v in off.debug_masks.items()}}
+            run.update({f: strs(getattr(off, f)) for f in SLICE_FIELDS})
+            run.update(r=strs(sig.r), s=strs(sig.s), recid=strs(sig.recid),
+                       sig_valid=[bool(v) for v in np.asarray(sig.sig_valid)],
+                       sign_ok=[bool(v) for v in np.asarray(sig.ok)])
+            out["runs"][name] = run
+            print(f"  gg20 ref-exact {name} {time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return out
 
 
@@ -610,7 +665,8 @@ def kernels_fixed() -> dict:
 
 GOLDENS = {"gg20_blame_768": (gg20_blame, "1"), "gg18_768": (gg18, "1"),
            "lindell17_1024": (lindell17, "0"), "pdl_576": (pdl576, "0"),
-           "gg20_slice_768": (gg20_slice, "0"), "runtime_768": (runtime768, "0"),
+           "gg20_slice_768": (gg20_slice, "0"), "gg20_ref_exact_768": (gg20_ref_exact, "0"),
+           "runtime_768": (runtime768, "0"),
            "kernels_ec": (kernels_ec, "0"), "kernels_rns": (kernels_rns, "0"),
            "kernels_fixed": (kernels_fixed, "0")}
 

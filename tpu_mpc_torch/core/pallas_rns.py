@@ -158,6 +158,9 @@ def exp_launch(x, e, rows, nbits: int, emit_planes: bool = True):
     x32, e32, r32 = _i32(xp), _i32(ep), _i32(rp)
     # the window table's global home, where it does not fit in shared memory
     ntab = lib.k1_tab_words(Bp, par.K, par.Kp, par.Lin, par.Lout, par.MT, par.KT)
+    if ntab < 0:
+        raise ValueError(f"K1: {B} lanes at {nbits} bits: the window table's words "
+                         "exceed an int; split the launch")
     tab = torch.empty(max(ntab, 1), dtype=torch.int32, device=x.device)
     cols = torch.empty((Bp, par.Lout) if emit_planes else (1,), dtype=torch.int64,
                        device=x.device)

@@ -198,10 +198,13 @@ Plan plan(const Dims& d) {
 }  // namespace
 
 // u32 words of the global window table a launch of B lanes needs: 0 when the
-// table sits in shared memory.
+// table sits in shared memory, -1 past an int's range (over ~490k lanes at
+// 4096 bits: the caller splits the launch).
 extern "C" int k1_tab_words(int B, int K, int Kp, int Lin, int Lout, int MT, int KT) {
   const Dims d{K, Kp, K + Kp + 1, Lin, Lout, MT, KT};
-  return plan(d).tab_shared ? 0 : B * 16 * MT * 16;
+  if (plan(d).tab_shared) return 0;
+  const size_t words = (size_t)B * 16 * MT * 16;
+  return words > (size_t)0x7FFFFFFF ? -1 : (int)words;
 }
 
 // B must be a multiple of the lane tile (8); tab_glob holds k1_tab_words u32

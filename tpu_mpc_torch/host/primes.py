@@ -21,11 +21,20 @@ pinned seed reproduces the reference's keys:
     q and 2q + 1 are sieved by the same primes, then Miller-Rabin rounds
     2 (q), 2 (p), 26 (q), 26 (p) (primegen.cpp:237-269).
 
+That draw is kept for seeded runs only: a prime drawn from a 64-bit seed is
+one of at most 2^64 values, so a modulus made of two of them can be
+factored with about 2^64 work.  An unseeded draw (no rng, or the OS's
+random.SystemRandom, which an unseeded SessionRng holds) takes every
+candidate's bits and every witness from the OS (secrets) and never goes
+through a 64-bit state; it keeps the helper's Miller-Rabin rounds (28 for
+a random prime; 2, 2, 26, 26 after the double sieve for a safe prime).
+
 Prime search is a rejection loop, the one part of keygen that cannot be
 constant-shape: it stays on the host.  The parallel variants draw one
-64-bit seed per prime from the caller's rng in order (the reference's seed
+64-bit seed per prime from a seeded rng in order (the reference's seed
 order) and search the seeds in worker processes, so the output does not
-depend on the number of workers.
+depend on the number of workers; unseeded, each worker draws its own
+candidates from the OS.
 """
 
 from __future__ import annotations
@@ -178,19 +187,47 @@ def _helper_gen_safe_prime(bits: int, seed: int) -> int:
 # the reference's API
 # --------------------------------------------------------------------------
 
+def _unseeded(rng) -> bool:
+    """True for a draw with no reproducible stream behind it: no rng, or the
+    OS's (random.SystemRandom, as an unseeded SessionRng holds)."""
+    return rng is None or isinstance(rng, random.SystemRandom)
+
+
+def _os_gen_prime(bits: int) -> int:
+    """A prime of exactly `bits` bits from OS candidates, held to the
+    helper's 28 Miller-Rabin rounds (is_probable_prime: OS witnesses, after
+    trial division by the primes below 10000)."""
+    top = 1 << (bits - 1)
+    while True:
+        cand = secrets.randbits(bits) | top | 1
+        if is_probable_prime(cand, _NATIVE_MR_ROUNDS):
+            return cand
+
+
+def _os_gen_safe_prime(bits: int) -> int:
+    """A safe prime p = 2q + 1 of exactly `bits` bits from OS candidates: q
+    with its top two bits 01, the helper's double sieve, then its rounds
+    2 (q), 2 (p), 26 (q), 26 (p) (is_probable_prime, OS witnesses)."""
+    top2, low = 1 << (bits - 2), (1 << (bits - 1)) - 1
+    while True:
+        q = ((secrets.randbits(bits) | top2) & low) | 1
+        p = 2 * q + 1
+        if any(q % sp == 0 or p % sp == 0 for sp in _HELPER_PRIMES if sp < q):
+            continue
+        if all(is_probable_prime(v, r) for v, r in ((q, 2), (p, 2), (q, 26), (p, 26))):
+            return p
+
+
 def gen_prime(bits: int, rng: random.Random | None = None) -> int:
-    """Random prime of exactly `bits` bits.  Draws one 64-bit seed from rng
-    for the helper's draw; where the helper refuses the width, searches with
-    rng itself (the reference's fallback, after the same seed draw)."""
-    if rng is None:
-        seed = secrets.randbits(64)
-        if _helper_accepts(bits):
-            return _helper_gen_prime(bits, seed)
-        rng = random.Random(secrets.randbits(128))
-    else:
-        seed = rng.getrandbits(64)
-        if _helper_accepts(bits):
-            return _helper_gen_prime(bits, seed)
+    """Random prime of exactly `bits` bits.  Seeded: draws one 64-bit seed
+    from rng for the helper's draw; where the helper refuses the width,
+    searches with rng itself (the reference's fallback, after the same seed
+    draw).  Unseeded: OS candidates (_os_gen_prime)."""
+    if _unseeded(rng):
+        return _os_gen_prime(bits)
+    seed = rng.getrandbits(64)
+    if _helper_accepts(bits):
+        return _helper_gen_prime(bits, seed)
     while True:
         cand = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
         if is_probable_prime(cand, rng=rng):
@@ -199,10 +236,11 @@ def gen_prime(bits: int, rng: random.Random | None = None) -> int:
 
 def gen_safe_prime(bits: int, rng: random.Random | None = None) -> int:
     """Safe prime p = 2q + 1 of exactly `bits` bits (Paillier's
-    keypair_safe_primes role); the helper's double-sieved draw, or the
-    reference's python fallback where the helper refuses the width."""
-    if rng is None:
-        rng = random.Random(secrets.randbits(128))
+    keypair_safe_primes role).  Seeded: the helper's double-sieved draw, or
+    the reference's python fallback where the helper refuses the width.
+    Unseeded: OS candidates (_os_gen_safe_prime)."""
+    if _unseeded(rng):
+        return _os_gen_safe_prime(bits)
     seed = rng.getrandbits(64)
     if _helper_accepts(bits):
         return _helper_gen_safe_prime(bits, seed)
@@ -215,6 +253,8 @@ def gen_safe_prime(bits: int, rng: random.Random | None = None) -> int:
 
 def _one_prime(job) -> int:
     bits, seed = job
+    if seed is None:
+        return _os_gen_prime(bits)
     if _helper_accepts(bits):
         return _helper_gen_prime(bits, seed)
     r2 = random.Random(seed)  # per-seed fallback keeps parallel determinism
@@ -226,6 +266,8 @@ def _one_prime(job) -> int:
 
 def _one_safe_prime(job) -> int:
     bits, seed = job
+    if seed is None:
+        return _os_gen_safe_prime(bits)
     if _helper_accepts(bits):
         return _helper_gen_safe_prime(bits, seed)
     r2 = random.Random(seed)
@@ -241,7 +283,8 @@ _POOL_MIN_BITS = 1024
 
 
 def _fan_out(fn, bits: int, count: int, rng, workers):
-    seeds = [rng.getrandbits(64) if rng else secrets.randbits(64) for _ in range(count)]
+    # a job carries its seed, or None: unseeded, the worker draws from the OS
+    seeds = [None] * count if _unseeded(rng) else [rng.getrandbits(64) for _ in range(count)]
     jobs = [(bits, s) for s in seeds]
     if workers is None:
         workers = (os.cpu_count() or 1) if bits >= _POOL_MIN_BITS else 1
@@ -280,10 +323,10 @@ def _bare_main():
 
 def gen_primes_parallel(bits: int, count: int, rng: random.Random | None = None,
                         workers: int | None = None) -> list[int]:
-    """`count` primes of `bits` bits.  One 64-bit seed per prime is drawn
-    from rng in order (the draw order of repeated gen_prime calls); the
-    searches run in `workers` processes (default: one per core from 1024
-    bits up, else none)."""
+    """`count` primes of `bits` bits.  Seeded: one 64-bit seed per prime is
+    drawn from rng in order (the draw order of repeated gen_prime calls).
+    Unseeded: each search draws from the OS.  The searches run in `workers`
+    processes (default: one per core from 1024 bits up, else none)."""
     return _fan_out(_one_prime, bits, count, rng, workers)
 
 

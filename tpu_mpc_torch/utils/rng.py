@@ -1,16 +1,22 @@
-"""Deterministic host-side randomness (port of tpu_mpc/utils/rng.py).
+"""Host-side randomness (port of tpu_mpc/utils/rng.py).
 
 All protocol randomness is pre-generated on host (python ints) and injected
 into kernels explicitly.  This mirrors the reference's fixed-randomness seams
 (a_with_predefined_randomness, mta/mod.rs:62,111) and is what makes runs
 reproducible and kernels constant-shape (no on-device rejection sampling).
+
+A seeded SessionRng is the reference's stream, draw for draw (random.Random,
+a Mersenne Twister), so that pinned runs reproduce its goldens and key
+files.  An unseeded one draws from the OS (random.SystemRandom): one stream
+gives both the secret nonces and published values such as the decommit
+blinds, and 624 published 32-bit words of a Mersenne Twister would give
+away its whole state, forward and backward.
 """
 
 from __future__ import annotations
 
 import math
 import random
-import secrets
 
 import numpy as np
 
@@ -18,10 +24,11 @@ from ..host import ec as hec
 
 
 class SessionRng:
-    """Seeded RNG producing object ndarrays of python ints."""
+    """RNG producing object ndarrays of python ints: random.Random(seed)
+    when seeded, the OS's random.SystemRandom when not."""
 
     def __init__(self, seed: int | None = None):
-        self._r = random.Random(secrets.randbits(128) if seed is None else seed)
+        self._r = random.SystemRandom() if seed is None else random.Random(seed)
 
     def _fill(self, shape, fn):
         n = int(np.prod(shape)) if shape else 1
