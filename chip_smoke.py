@@ -8,7 +8,20 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build   every CUDA kernel from tpu_mpc_torch/csrc/ (one nvcc per
              source, all started together) and print the build seconds;
-  2. check   every kernel (K1-K5) against its plain PyTorch version on the
+  2. native  the native host layer (tpu_mpc_torch/native/): prints the g++
+             version, the build seconds and the paths of libgmp, libcrypto
+             and the two libraries; seeded 1024-bit primes (4 seeds) and
+             512-bit safe primes (2 seeds), each equal to its plain python
+             draw; two unseeded 1024-bit primes that pass
+             is_probable_prime; host_mulmod and host_prod_axis0 at the
+             S = 4096 shapes (2048- and 4096-bit moduli, 2 and 4 operands,
+             4096 lanes) on GMP, plus a negative operand and 31 lanes on the
+             python loop, each equal to the python loop (the GMP call split
+             into packing, call and unpacking); ecdsa_verify_batch
+             (OpenSSL) on 4096 signatures of one key and the edge cases of
+             tests/gpu/test_torch_verify.py, equal to
+             ecdsa_verify_batch_plain.  Both times of each;
+  3. check   every kernel (K1-K5) against its plain PyTorch version on the
              card, exactly (integers: tolerance 0), at the slice's shapes,
              with samples against python pow() and the host EC oracle, and
              time both (CUDA events); K2's table builds are timed too.  K1
@@ -26,7 +39,7 @@ Phases (any failure exits non-zero and prints no result line):
              lanes, K4 at 256 and 512 for both bases; K5 (lanes with Z = 0
              and with edge Z values, those also against python pow) at 1,
              7, 9, 33, 257, and timed at 256 and 512;
-  3. keygen  GG20 keygen (t = 1, n = 3, 2048-bit Paillier) on the card in
+  4. keygen  GG20 keygen (t = 1, n = 3, 2048-bit Paillier) on the card in
              the tables configuration: keygen(16, ...) under SessionRng(0xFACE)
              and keygen(1, ...) under SessionRng(0xBE7C), each held equal,
              field for field, to the JAX package's key file of that seed
@@ -35,7 +48,7 @@ Phases (any failure exits non-zero and prints no result line):
              its first call; prints the host prime-search seconds, kernel
              device time, table-build seconds and bytes, launches and ms per
              kernel, and the prime search over worker processes against one;
-  4. slice   GG20 2-of-3 signing at 2048-bit Paillier: the S = 1 key of the
+  5. slice   GG20 2-of-3 signing at 2048-bit Paillier: the S = 1 key of the
              keygen phase (equal to benches/bench_key_2048.json) tiled to
              S = 128 sessions, in both
              configurations (TPU_MPC_TORCH_ENC_TABLES): "tables" (h1/h2 and
@@ -52,14 +65,15 @@ Phases (any failure exits non-zero and prints no result line):
              K4 and K5 launches by lane count (and ns).  Then the first
              timed tables pass's signatures and as many tampered cases (s+1,
              m+1, r+1, a None key, a key off the curve, an (x + P, y) alias)
-             through ecdsa_verify_batch and ecdsa_verify: equal answers but
-             on the off-curve keys, which the batch verifier rejects; prints
-             both host times.  Then one more tables pass with the launch log
+             through ecdsa_verify_batch (OpenSSL), ecdsa_verify_batch_plain
+             and ecdsa_verify: equal answers but on the off-curve keys,
+             which the batch verifiers reject; prints the host times.  Then
+             one more tables pass with the launch log
              on (TPU_MPC_TORCH_PROFILE=1) from a fresh SessionRng: (r, s,
              recid) equal to the tables warm-up pass, only the reference's
              kinds logged, the TOTAL count equal to the rows; prints
              profile_summary().
-  5. scale   the same key tiled to S = 4096 sessions, bench.py's default S,
+  6. scale   the same key tiled to S = 4096 sessions, bench.py's default S,
              one pass in each of bench.py:main's configurations under
              SessionRng(SCALE_SEED): "tables" (the default: tables, batch
              verification on) and "refexact" (TPU_MPC_TORCH_BATCH_VERIFY=0,
@@ -74,7 +88,7 @@ Phases (any failure exits non-zero and prints no result line):
              slow at these shapes).  Prints each pass's seconds, sig/s,
              kernel ms and launches, launch shapes, each shape's ms and
              bound, and peak card memory, beside the card's name and limit.
-  6. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
+  7. multitenant  G = 8 key sets of the S = 16 keygen serving S = 128
              sessions interleaved (session s on key group s % 8), tables
              configuration with the tables compressed at 8 key sets behind a
              gmap: K2 over the key's 24 flattened table groups, then one
@@ -83,7 +97,7 @@ Phases (any failure exits non-zero and prints no result line):
              kernels and take the G = 8 batch verification with no
              per-session fallback; every signature of the warm-up pass
              verifies under its own group's y.
-  7. blame   GG20 identifiable aborts on the slice's tables key (S = 16,
+  8. blame   GG20 identifiable aborts on the slice's tables key (S = 16,
              signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
              (step 6) or the committed g_gamma ("decommit") of per-session
              corruption matrices, a clean offline_stage with s_i corrupted
@@ -92,13 +106,13 @@ Phases (any failure exits non-zero and prints no result line):
              exactly in the corrupted sessions, honest sessions verify; every
              K1-K5 launch shape held against its plain version; prints each
              blame function's seconds and the host Paillier open loop's;
-  8. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
+  9. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
              every signer pair reconstructs sum u, every launch shape held),
              then GG18 sign at S = 128 on the slice's tables key for the
              signer subsets [0, 1], [1, 2], [0, 2] (one warm-up pass with the
              holds, then one timed pass each): every signature verifies with
              low s; prints the prime-search seconds and sig/s.
-  9. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
+ 10. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
              Paillier and N~, each session its own key (no tables, no K2):
              keygen (every ok, y = (x1 x2) G), sign of MSG_2P (a warm-up
              pass with the holds, a timed pass; every signature verifies
@@ -108,10 +122,10 @@ Phases (any failure exits non-zero and prints no result line):
              rejected); every launch shape held against its plain version;
              prints keygen's prime search, kernel and other seconds, sig/s,
              the refresh and PDL seconds, and per kernel ms and launches;
- 10. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
+ 11. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
              MSG_2P, host only: valid, low s, no kernel launched; prints
              the host seconds.
- 11. runtime the GG20 state machines in this process on the card, replaying
+ 12. runtime the GG20 state machines in this process on the card, replaying
              the JAX package's transcript tests/gpu/fixtures/runtime_768.json
              (run_simulation over three Gg20Keygen at 768 bits, an offline
              stage and sign_manual): every message string and output equal
@@ -124,7 +138,7 @@ Phases (any failure exits non-zero and prints no result line):
              shares reconstruct, equal valid low-s signatures).  Every child
              must exit 0 on the card with K1, K3, K4, K5 launched; prints the
              walls and one process's import-torch-and-CUDA-context time.
- 12. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
+ 13. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
              under sessions_mesh() (every visible card), under a mesh that
              repeats the card 4 times, and over two real cards where there
              are two: a warm-up pass holding every K1-K5 piece shape against
@@ -244,7 +258,209 @@ def _maxerr(a, b) -> int:
 
 
 # --------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: the native host layer
+# --------------------------------------------------------------------------
+
+NATIVE_PRIME_SEEDS = (1, 2, 3, 4)    # seeded 1024-bit primes
+NATIVE_SAFE_SEEDS = (1, 2)           # seeded 512-bit safe primes
+GMP_LANES = 4096                     # host_mulmod's lanes at S = 4096
+VERIFY_SIGS = 4096                   # signatures of one key through both verifiers
+
+
+def _rand_ints(rnd, n: int, bits: int, odd: bool = False):
+    import numpy as np
+
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        out[i] = rnd.getrandbits(bits) | (1 if odd else 0)
+    return out
+
+
+def _gmp_case(kind: str, args) -> str:
+    """One host_mulmod (kind "mulmod": args = operands then modulus) or
+    host_prod_axis0 (kind "prodax0": args = (vals, modulus row)) call on
+    GMP, held against the python loop; the GMP route is also run step by
+    step (packing, call, unpacking).  Returns the log fragment."""
+    from tpu_mpc_torch import native
+    from tpu_mpc_torch.core import modctx
+
+    fn = modctx.host_mulmod if kind == "mulmod" else modctx.host_prod_axis0
+    with _Timed(native.hostmul, "mulmod_batch") as gm, \
+            _Timed(native.hostmul, "prodmod_axis0") as gp:
+        t = time.perf_counter()
+        got = fn(*args)
+        t_whole = time.perf_counter() - t
+    on_gmp = gm.calls + gp.calls
+    t = time.perf_counter()
+    if kind == "mulmod":
+        *ops, mod = args
+        cols = [modctx._ints(a) for a in ops]
+        mods = modctx._ints(mod)
+        W = modctx._native_width(cols, mods, len(mods))
+        steps = None
+        if W is not None:
+            bufs = [modctx._pack_ints(c, W) for c in cols] + [modctx._pack_ints(mods, W)]
+            t1 = time.perf_counter()
+            raw = native.hostmul.mulmod_batch(bufs[:-1], bufs[-1], len(mods), W)
+            t2 = time.perf_counter()
+            steps = modctx._unpack_ints(raw, len(mods), W)
+    else:
+        vals, row = args
+        mods = modctx._ints(row)
+        flat = modctx._ints(vals)
+        W = modctx._native_width([flat], mods, len(flat))
+        steps = None
+        if W is not None:
+            vb, mb = modctx._pack_ints(flat, W), modctx._pack_ints(mods, W)
+            t1 = time.perf_counter()
+            raw = native.hostmul.prodmod_axis0(vb, vals.shape[0], mb, len(mods), W)
+            t2 = time.perf_counter()
+            steps = modctx._unpack_ints(raw, len(mods), W)
+    t3 = time.perf_counter()
+    saved = modctx.NATIVE_MIN_LANES
+    modctx.NATIVE_MIN_LANES = 1 << 62
+    try:
+        t4 = time.perf_counter()
+        want = fn(*args)
+        t_loop = time.perf_counter() - t4
+    finally:
+        modctx.NATIVE_MIN_LANES = saved
+    require(got.shape == want.shape and got.tolist() == want.tolist(),
+            f"native: {kind} differs from the python loop")
+    if steps is None:
+        return (f"python loop (GMP calls {on_gmp}) {t_whole:.4f} s, equal to the loop's "
+                f"{t_loop:.4f} s")
+    require(on_gmp == 1 and steps.tolist() == want.reshape(-1).tolist(),
+            f"native: {kind}'s GMP route was not taken or its steps differ")
+    return (f"GMP {t_whole:.4f} s (pack {t1 - t:.4f}, call {t2 - t1:.4f}, unpack "
+            f"{t3 - t2:.4f}; W = {W} bytes) against the loop's {t_loop:.4f} s "
+            f"({t_loop / t_whole:.1f}x), equal")
+
+
+def _verify_cases(rnd):
+    """VERIFY_SIGS signatures of one key (nonces k0, k0 + 1, ..., so that R
+    walks by G), then the edge cases of tests/gpu/test_torch_verify.py on
+    the first: [(label, pubkey, m, r, s)] and the answer each must get."""
+    from tpu_mpc_torch.host import ec as hec
+
+    N, P = hec.N, hec.P
+    d, k0 = rnd.randrange(1, N), rnd.randrange(1, N - VERIFY_SIGS)
+    Y, R = hec.mul(d), hec.mul(k0)
+    cases = []
+    for i in range(VERIFY_SIGS):
+        if i:
+            R = hec.add(R, hec.G)
+        m = rnd.getrandbits(256)
+        r = R[0] % N
+        cases.append((f"sig {i}", Y, m, r, pow(k0 + i, -1, N) * (m + r * d) % N))
+    _, _, m, r, s = cases[0]
+    x, y = Y
+    t = 0x1234567
+    Q = (5, 123456789)
+    rq = hec.mul(t, Q)[0] % N
+    edges = {"s + 1": (Y, m, r, s + 1, False), "r = 0": (Y, m, 0, s, False),
+             "s = N": (Y, m, r, N, False), "m + 1": (Y, m + 1, r, s, False),
+             "m + N": (Y, m + N, r, s, True), "high s": (Y, m, r, N - s, True),
+             "None key": (None, m, r, s, False), "(x + P, y)": ((x + P, y), m, r, s, True),
+             "(x, y + P)": ((x, y + P), m, r, s, True), "(x, y + 1)": ((x, y + 1), m, r, s, False),
+             "-r": (Y, m, -r, s, False), "r + N": (Y, m, r + N, s, False),
+             "(-x, y)": ((-x, y), m, r, s, False), "(x + 5P, y)": ((x + 5 * P, y), m, r, s, True),
+             "off curve": (Q, 0, rq, rq * pow(t, -1, N) % N, False)}
+    want = [True] * VERIFY_SIGS + [e[4] for e in edges.values()]
+    cases += [(label,) + e[:4] for label, e in edges.items()]
+    return cases, want
+
+
+def run_native() -> None:
+    """The native host layer: its builds, each helper against its plain
+    version on the card's host, with both times (see the module docstring,
+    phase 2).  Host only: no kernel runs here."""
+    import numpy as np
+
+    from tpu_mpc_torch import native
+    from tpu_mpc_torch.core import modctx
+    from tpu_mpc_torch.host import ec as hec, primes
+
+    t_phase = time.perf_counter()
+    ver = subprocess.run([native.gxx(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    t = time.perf_counter()
+    fresh = [name for name in native.SOURCES if not os.path.exists(native.lib_path(name))]
+    paths = {name: native.build(name) for name in native.SOURCES}
+    t_build = time.perf_counter() - t
+    for name in (*native.SOURCES, "crypto"):
+        native.lib(name)
+    log(f"native: {ver}; built {fresh} in {t_build:.2f} s (g++ {' '.join(native.GXX_FLAGS)}); "
+        f"libgmp {native.gmp_path()}; libcrypto {native.libcrypto_path()}; "
+        + "; ".join(f"{k} {v}" for k, v in paths.items()))
+
+    rows = []
+    for bits, seeds, fast, plain in ((1024, NATIVE_PRIME_SEEDS, native.primegen.gen_prime,
+                                      primes._helper_gen_prime),
+                                     (512, NATIVE_SAFE_SEEDS, native.primegen.gen_safe_prime,
+                                      primes._helper_gen_safe_prime)):
+        for seed in seeds:
+            t = time.perf_counter()
+            a = fast(bits, seed)
+            t1 = time.perf_counter()
+            b = plain(bits, seed)
+            t2 = time.perf_counter()
+            require(a == b and a.bit_length() == bits,
+                    f"native: {fast.__name__}({bits}, {seed}) differs from its plain version")
+            rows.append(f"{fast.__name__}({bits}, {seed}) {t1 - t:.3f} / {t2 - t1:.3f} s")
+    log("native: seeded draws equal their plain versions (native / plain): " + "; ".join(rows))
+    t = time.perf_counter()
+    unseeded = [primes.gen_prime(1024) for _ in range(2)]
+    require(len(set(unseeded)) == 2 and all(p.bit_length() == 1024 and primes.is_probable_prime(p)
+                                            for p in unseeded),
+            "native: an unseeded 1024-bit prime failed")
+    log(f"native: two unseeded 1024-bit primes (OS candidates, the helper's 28 rounds) in "
+        f"{time.perf_counter() - t:.3f} s, both pass is_probable_prime")
+
+    rnd = random.Random(0x6A9)
+    for bits in (2048, 4096):
+        mod = _rand_ints(rnd, GMP_LANES, bits, odd=True)
+        ops = [_rand_ints(rnd, GMP_LANES, bits - 1) for _ in range(4)]
+        for k in (2, 4):
+            log(f"native: host_mulmod, {k} operands, {GMP_LANES} lanes, {bits}-bit moduli: "
+                + _gmp_case("mulmod", ops[:k] + [mod]))
+        for S in (2, 4):
+            vals = np.stack(ops[:S])
+            log(f"native: host_prod_axis0, [{S}, {GMP_LANES}], {bits}-bit moduli: "
+                + _gmp_case("prodax0", (vals, mod.reshape(1, -1))))
+    neg = _rand_ints(rnd, GMP_LANES, 2048)
+    neg[17] = -neg[17]
+    mod = _rand_ints(rnd, GMP_LANES, 2048, odd=True)
+    log(f"native: host_mulmod with a negative operand, {GMP_LANES} lanes: "
+        + _gmp_case("mulmod", [neg, _rand_ints(rnd, GMP_LANES, 2048), mod]))
+    small = [_rand_ints(rnd, 31, 2048) for _ in range(2)] + [_rand_ints(rnd, 31, 2048, True)]
+    log("native: host_mulmod at 31 lanes: " + _gmp_case("mulmod", small))
+    require(modctx.NATIVE_MIN_LANES == 32, "native: the GMP threshold was not restored")
+
+    cases, want = _verify_cases(rnd)
+    cols = list(zip(*cases))[1:]
+    t = time.perf_counter()
+    got = hec.ecdsa_verify_batch(*cols)
+    t1 = time.perf_counter()
+    plain = hec.ecdsa_verify_batch_plain(*cols)
+    t2 = time.perf_counter()
+    bad = [cases[i][0] for i in range(len(cases)) if got[i] != want[i]]
+    require(not bad and got == plain, f"native: ecdsa_verify_batch wrong at {bad[:8]}, or "
+            f"unequal to ecdsa_verify_batch_plain")
+    sigs = [c[1:] for c in cases[:VERIFY_SIGS]]
+    t3 = time.perf_counter()
+    require(all(hec.ecdsa_verify_batch(*zip(*sigs))), "native: a signature failed")
+    t_sigs = time.perf_counter() - t3
+    log(f"native: ecdsa_verify_batch (OpenSSL) on {VERIFY_SIGS} signatures of one key and "
+        f"{len(cases) - VERIFY_SIGS} edge cases {t1 - t:.3f} s against "
+        f"ecdsa_verify_batch_plain's {t2 - t1:.3f} s ({(t2 - t1) / (t1 - t):.1f}x), equal; "
+        f"the {VERIFY_SIGS} signatures alone {t_sigs:.3f} s "
+        f"({1e6 * t_sigs / VERIFY_SIGS:.1f} us a signature)")
+    log(f"native: the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
 def _k1_bound(par, lanes, ne2, x, e, rows, dev):
@@ -980,7 +1196,7 @@ def _kernel_summary(inst, launches) -> str:
 
 
 # --------------------------------------------------------------------------
-# phase 3: keygen
+# phase 4: keygen
 # --------------------------------------------------------------------------
 
 PAILLIER_BITS = 2048
@@ -1086,7 +1302,7 @@ def run_keygen(dev, repo):
 
 
 # --------------------------------------------------------------------------
-# phase 4: the slice
+# phase 5: the slice
 # --------------------------------------------------------------------------
 
 def run_slice(dev, material, host_profile: bool = False):
@@ -1195,15 +1411,17 @@ def run_slice(dev, material, host_profile: bool = False):
 
 
 def check_verifiers(key, sig):
-    """The batched verifier (host/ec.py:ecdsa_verify_batch, on every batched
-    signing path) against the single-signature oracle ecdsa_verify on the
-    S signatures of a timed tables pass and S tampered cases: s + 1, m + 1,
-    r + 1, a None key, a key off the curve with a signature the affine
-    formulas accept (Q = (5, 123456789), r = x(t Q) mod N, s = r / t,
-    m = 0), and the key's (x + P, y) alias.  The two must agree on every
-    case but the off-curve ones, which the batch verifier (as OpenSSL, the
-    reference's) must reject; prints both host times, and the batch
-    verifier's on the S signatures alone (its share of a pass)."""
+    """The batched verifier (host/ec.py:ecdsa_verify_batch, OpenSSL, on every
+    batched signing path) against its plain version ecdsa_verify_batch_plain
+    and the single-signature oracle ecdsa_verify on the S signatures of a
+    timed tables pass and S tampered cases: s + 1, m + 1, r + 1, a None
+    key, a key off the curve with a signature the affine formulas accept
+    (Q = (5, 123456789), r = x(t Q) mod N, s = r / t, m = 0), and the key's
+    (x + P, y) alias.  The two batch verifiers must agree on every case,
+    and with ecdsa_verify on every case but the off-curve ones, which they
+    (as OpenSSL, the reference's) must reject; prints the three host times,
+    and the batch verifier's on the S signatures alone (its share of a
+    pass)."""
     from tpu_mpc_torch.ec import secp256k1 as dec
     from tpu_mpc_torch.host import ec as hec
 
@@ -1232,16 +1450,21 @@ def check_verifiers(key, sig):
     got = hec.ecdsa_verify_batch(*zip(*cases))
     t_batch = time.perf_counter() - t0
     t0 = time.perf_counter()
+    plain = hec.ecdsa_verify_batch_plain(*zip(*cases))
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
     single = [pub is not None and hec.ecdsa_verify(pub, mv, r, s) for pub, mv, r, s in cases]
     t_single = time.perf_counter() - t0
     off = [i for i in range(len(cases)) if i % 2 and (i // 2) % 6 == 4]
     require(got == want, f"verify: the batch verifier's answers differ from the expected at "
             f"{[i for i in range(len(cases)) if got[i] != want[i]][:8]}")
+    require(plain == got, "verify: ecdsa_verify_batch_plain differs from ecdsa_verify_batch")
     require(all(got[i] == single[i] for i in range(len(cases)) if i not in off),
             "verify: ecdsa_verify_batch and ecdsa_verify disagree on the curve")
     log(f"verify: {len(cases)} cases ({S_SESSIONS} signatures of a timed tables pass, "
         f"{S_SESSIONS} tampered: s+1, m+1, r+1, None key, off curve, (x+P, y)): "
-        f"ecdsa_verify_batch {t_batch:.3f} s, ecdsa_verify {t_single:.3f} s "
+        f"ecdsa_verify_batch (OpenSSL) {t_batch:.3f} s, ecdsa_verify_batch_plain "
+        f"{t_plain:.3f} s (equal answers), ecdsa_verify {t_single:.3f} s "
         f"({t_single / t_batch:.1f}x); equal on the curve; the {len(off)} off-curve cases "
         f"rejected by the batch verifier, accepted by ecdsa_verify in "
         f"{sum(single[i] for i in off)}; the {S_SESSIONS} signatures alone through "
@@ -1295,7 +1518,7 @@ def _sig_ints(sig):
 
 
 # --------------------------------------------------------------------------
-# phase 5: the main path at the JAX package's own scale
+# phase 6: the main path at the JAX package's own scale
 # --------------------------------------------------------------------------
 
 SCALE_S = 4096                       # bench.py:62, the JAX package's default S
@@ -1518,7 +1741,7 @@ def run_scale(dev, key1s: dict, host_profile: bool = False) -> dict:
 
     import torch
 
-    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch import kernels, native
     from tpu_mpc_torch.ec import secp256k1 as dec
     from tpu_mpc_torch.host import ec as hec
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
@@ -1547,7 +1770,8 @@ def run_scale(dev, key1s: dict, host_profile: bool = False) -> dict:
                 kernels.reset_launches()
                 prof = cProfile.Profile() if host_profile else None
                 with Instrument(set(), sampled=sampled) as inst, \
-                        _Timed(hec, "ecdsa_verify_batch") as vb:
+                        _Timed(hec, "ecdsa_verify_batch") as vb, \
+                        _Timed(native.hostmul, "mulmod_batch") as gmp:
                     t = time.perf_counter()
                     if prof:
                         prof.enable()
@@ -1588,8 +1812,9 @@ def run_scale(dev, key1s: dict, host_profile: bool = False) -> dict:
                 tot = sum(busy.get(k, 0.0) for k in launches)
                 log(f"scale[{cfg}] S={S} ({card}): pass {dt:.2f} s (offline {t_off:.2f} s, "
                     f"online {dt - t_off:.2f} s), {S / dt:.2f} sig/s; every offline check "
-                    f"holds; all {S} signatures pass ecdsa_verify_batch ({vb.secs:.2f} s of the "
-                    f"pass), {len(picks)} also ecdsa_verify; batch verification "
+                    f"holds; all {S} signatures pass ecdsa_verify_batch (OpenSSL, {vb.secs:.2f} s "
+                    f"of the pass), {len(picks)} also ecdsa_verify; {gmp.calls} host_mulmod "
+                    f"calls on GMP, their C calls {gmp.secs:.2f} s; batch verification "
                     f"{json.dumps(stats)}; " + _kernel_summary(inst, launches)
                     + f" ({100 * tot / (dt * 1e3):.1f}% of the pass); peak card memory "
                     f"{peak / 2 ** 30:.2f} GiB, {(peak - base) / 2 ** 30:.2f} GiB over the "
@@ -1626,7 +1851,7 @@ def run_scale(dev, key1s: dict, host_profile: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 6: multi-tenant signing
+# phase 7: multi-tenant signing
 # --------------------------------------------------------------------------
 
 MT_GROUPS = 8
@@ -1731,7 +1956,7 @@ def run_multitenant(dev, res16):
 
 
 # --------------------------------------------------------------------------
-# phase 7: identifiable aborts (blame)
+# phase 8: identifiable aborts (blame)
 # --------------------------------------------------------------------------
 
 BLAME_PATTERNS = {5: [[], [0], [1], [0, 1]], 6: [[], [0], [1], [0, 1]],
@@ -1844,7 +2069,7 @@ def run_blame(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phase 8: GG18
+# phase 9: GG18
 # --------------------------------------------------------------------------
 
 GG18_KEYGEN = (16, 0x6618)          # S, SessionRng seed
@@ -1940,7 +2165,7 @@ def run_gg18(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phases 9 and 10: the two-party protocols
+# phases 10 and 11: the two-party protocols
 # --------------------------------------------------------------------------
 
 L17_S, L17_SEED = 64, 0x2017        # sessions, each with its own Paillier key and N~
@@ -2104,7 +2329,7 @@ def run_cclst19():
 
 
 # --------------------------------------------------------------------------
-# phase 11: the runtime (state machines, relays, CLI and GG18 clients)
+# phase 12: the runtime (state machines, relays, CLI and GG18 clients)
 # --------------------------------------------------------------------------
 
 RUNTIME_GOLDEN = os.path.join("tests", "gpu", "fixtures", "runtime_768.json")
@@ -2390,7 +2615,7 @@ def run_runtime_processes(repo, work) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 12: sessions-axis sharding
+# phase 13: sessions-axis sharding
 # --------------------------------------------------------------------------
 
 SHARD_ENTRIES = 4                    # the mesh that repeats the one card
@@ -2594,6 +2819,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     for name in kernels.SOURCES:
         kernels.lib(name)
+    run_native()
 
     rnd = random.Random(20261016)
     t0 = time.perf_counter()

@@ -1,6 +1,8 @@
 """The port stands alone: importing tpu_mpc_torch (every module, the runtime's
 CLIs included) pulls in neither jax, nor any tpu_mpc module, nor the
-cryptography package, and the default device is the card (no silent CPU)."""
+cryptography package; its native host layer (tpu_mpc_torch/native/) imports
+the standard library only and loads none of tpu_mpc/native/'s libraries;
+and the default device is the card (no silent CPU)."""
 
 import os
 import subprocess
@@ -43,6 +45,27 @@ def test_chip_smoke_imports_no_jax_no_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
 
+
+def test_native_layer_imports_nothing_but_the_standard_library():
+    """native/__init__.py and host/primes.py (what a spawned prime worker
+    imports) pull in no torch, numpy, jax or tpu_mpc module; after the
+    helpers run, no library of tpu_mpc/native/ is mapped."""
+    probe = ("import sys, random\n"
+             "from tpu_mpc_torch import native\n"
+             "from tpu_mpc_torch.host import primes\n"
+             "primes.gen_primes_parallel(256, 2, random.Random(1), workers=1)\n"
+             "native.hostmul.mulmod_batch([b'\\x03' * 8], b'\\x07' * 8, 1, 8)\n"
+             "native.openssl.verifier().close()\n"
+             "bad = sorted(k for k in sys.modules\n"
+             "             if k.split('.')[0] in ('torch', 'numpy', 'jax', 'tpu_mpc'))\n"
+             "maps = open('/proc/self/maps').read()\n"
+             "print('BAD', bad, 'REF_SO', 'tpu_mpc/native/' in maps,\n"
+             "      'PORT_SO', 'tpu_mpc_torch/libprimegen-' in maps)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] REF_SO False PORT_SO True" in out.stdout, out.stdout
 
 
 def test_kernel_ab_imports_no_jax_no_reference():

@@ -1,8 +1,10 @@
 """GG20 keygen of the port on the CPU, held against the reference package.
 
 The reference's keygen takes its primes from its native helper
-(tpu_mpc/native/primegen.cpp); the port draws the same primes in python
-(tpu_mpc_torch/host/primes.py).  With the same draws from SessionRng, the
+(tpu_mpc/native/primegen.cpp); the port draws the same primes with its own
+copy of it (tpu_mpc_torch/native/primegen.cpp), whose plain python version
+(tpu_mpc_torch/host/primes.py) is held here against the reference's
+helper.  With the same draws from SessionRng, the
 port's keygen reproduces the reference's committed 768-bit keys
 (tests/fixtures/gg20key_*.json) field for field, with no JAX run.  Every
 case here takes seconds: none runs the reference's keygen or

@@ -7,8 +7,9 @@ committed key files and goldens still hold.
 
 Unseeded draws are the port's own: SessionRng() draws from the OS
 (random.SystemRandom), and an unseeded prime search takes its candidates
-and witnesses from the OS, never from the helper's 64-bit splitmix64 state
-(tpu_mpc_torch/host/primes.py:_SplitMix64), which is patched here to raise.
+(and its witnesses, or their seeds) from the OS, never from the helper's
+64-bit splitmix64 state (tpu_mpc_torch/host/primes.py:_SplitMix64), which
+is patched here to raise.
 """
 
 import random

@@ -1,11 +1,14 @@
-"""The port's batched ECDSA verifier (host/ec.py:ecdsa_verify_batch) on the
-CPU, held case for case against the reference's OpenSSL verifier
-(tpu_mpc.host.ec.ecdsa_verify_batch and ecdsa_verify_openssl, run live) and
-against the port's single-signature oracle ecdsa_verify: honest signatures
-over three keys, tampered ones, keys that are None, off the curve, or
-coordinate aliases mod p; then _finish_signatures, the signature finish of
-the port's batched GG20, GG18 and Lindell'17 signing, on a batch whose y
-holds a key off the curve."""
+"""The port's batched ECDSA verifiers on the CPU: ecdsa_verify_batch
+(OpenSSL's libcrypto through ctypes, host/ec.py) and its plain python
+version ecdsa_verify_batch_plain, each held case for case against the
+reference's OpenSSL verifier (tpu_mpc.host.ec.ecdsa_verify_batch and
+ecdsa_verify_openssl, through `cryptography`, run live) and against the
+port's single-signature oracle ecdsa_verify: honest signatures over three
+keys, tampered ones (r = 0, a negative r, r + N, s = N, a high s), keys that
+are None, off the curve, negative, or coordinate aliases mod p; the port's
+ecdsa_verify_openssl against the reference's; then _finish_signatures, the
+signature finish of the port's batched GG20, GG18 and Lindell'17 signing,
+on a batch whose y holds a key off the curve."""
 
 import numpy as np
 import pytest
@@ -39,6 +42,8 @@ def cases():
         ("m + 1", Y, m + 1, r, s), ("m + N", Y, m + N, r, s), ("high s", Y, m, r, N - s),
         ("None key", None, m, r, s), ("(x + P, y)", (x + P, y), m, r, s),
         ("(x, y + P)", (x, y + P), m, r, s), ("(x, y + 1)", (x, y + 1), m, r, s),
+        ("-r", Y, m, -r, s), ("r + N", Y, m, r + N, s), ("(-x, y)", (-x, y), m, r, s),
+        ("(x + 5P, y)", (x + 5 * P, y), m, r, s),
     ]
     T = hec.mul(OFF_T, OFF_CURVE)
     r_off = T[0] % N
@@ -46,35 +51,52 @@ def cases():
     return out
 
 
-def test_batch_verifier_gives_openssl_answers(cases):
+VERIFIERS = ("ecdsa_verify_batch", "ecdsa_verify_batch_plain")
+
+
+@pytest.mark.parametrize("verifier", VERIFIERS)
+def test_batch_verifier_gives_openssl_answers(cases, verifier):
     from tpu_mpc.host import ec as ref
     from tpu_mpc_torch.host import ec as hec
 
     _, pubs, ms, rs, ss = zip(*cases)
-    got = hec.ecdsa_verify_batch(pubs, ms, rs, ss)
+    got = getattr(hec, verifier)(pubs, ms, rs, ss)
     assert got == ref.ecdsa_verify_batch(pubs, ms, rs, ss)
     assert got == [pub is not None and ref.ecdsa_verify_openssl(pub, m, r, s)
                    for _, pub, m, r, s in cases]
     want = {"s + 1": False, "r = 0": False, "s = N": False, "m + 1": False, "m + N": True,
             "high s": True, "None key": False, "(x + P, y)": True, "(x, y + P)": True,
-            "(x, y + 1)": False, "off curve": False}
+            "(x, y + 1)": False, "-r": False, "r + N": False, "(-x, y)": False,
+            "(x + 5P, y)": True, "off curve": False}
     by_label = dict(zip((c[0] for c in cases), got))
     assert all(by_label[f"honest {i}"] for i in range(N_SIGS))
     assert {k: by_label[k] for k in want} == want
 
 
-def test_batch_verifier_agrees_with_ecdsa_verify_on_the_curve(cases):
+@pytest.mark.parametrize("verifier", VERIFIERS)
+def test_batch_verifier_agrees_with_ecdsa_verify_on_the_curve(cases, verifier):
     """ecdsa_verify never uses b = 7: it accepts the off-curve signature,
-    which OpenSSL and the batch verifier reject; on every other case the
-    two verifiers agree."""
+    which OpenSSL and the batch verifiers reject; on every other case the
+    verifiers agree."""
     from tpu_mpc_torch.host import ec as hec
 
     for label, pub, m, r, s in cases:
-        batch = hec.ecdsa_verify_batch([pub], [m], [r], [s])[0]
+        batch = getattr(hec, verifier)([pub], [m], [r], [s])[0]
         if label == "off curve":
             assert hec.ecdsa_verify(pub, m, r, s) and not batch
         elif pub is not None and label != "(x, y + 1)":
             assert batch == hec.ecdsa_verify(pub, m % hec.N, r, s), label
+
+
+def test_ecdsa_verify_openssl_equals_reference(cases):
+    """The single-signature OpenSSL check, case for case against the
+    reference's (which raises on a None key: the port's says False)."""
+    from tpu_mpc.host import ec as ref
+    from tpu_mpc_torch.host import ec as hec
+
+    for label, pub, m, r, s in cases:
+        want = pub is not None and ref.ecdsa_verify_openssl(pub, m, r, s)
+        assert hec.ecdsa_verify_openssl(pub, m, r, s) == want, label
 
 
 def test_finish_signatures_rejects_an_off_curve_key(cases):

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 
 # The launch log.  Call sites read PROFILE when they are called, so it can
@@ -196,25 +197,74 @@ def _max_bits(a) -> int:
                default=1)
 
 
+# from this many products on, host_mulmod and host_prod_axis0 run on GMP
+# (native/hostmul.cpp), the reference's routing (tpu_mpc/core/modctx.py)
+NATIVE_MIN_LANES = 32
+
+
+def _ints(a) -> list:
+    return [int(v) for v in np.asarray(a, dtype=object).reshape(-1).tolist()]
+
+
+def _width_for(cols: list) -> int:
+    """Bytes per value for the GMP helper: the widest value of the int
+    lists `cols`, rounded up to whole 64-bit words."""
+    bits = max(v.bit_length() for c in cols for v in c)
+    return max(1, (bits + 63) // 64) * 8
+
+
+def _native_width(cols: list, mods: list, lanes: int):
+    """_width_for(cols + [mods]) where the GMP helper gives the python
+    loop's values, else None: fewer than NATIVE_MIN_LANES products, no
+    operand, a negative operand (python's % gives the non-negative result)
+    or a modulus below 1 (the loop raises on 0)."""
+    if lanes < NATIVE_MIN_LANES or not cols or min(mods) < 1 or any(min(c) < 0 for c in cols):
+        return None
+    return _width_for(cols + [mods])
+
+
+def _pack_ints(vals: list, W: int) -> bytes:
+    """Python ints -> W-byte little-endian values, back to back."""
+    return b"".join(v.to_bytes(W, "little") for v in vals)
+
+
+def _unpack_ints(raw: bytes, n: int, W: int) -> np.ndarray:
+    """n W-byte little-endian values -> an object-int array."""
+    mv = memoryview(raw)
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        out[i] = int.from_bytes(mv[i * W:(i + 1) * W], "little")
+    return out
+
+
 def host_mulmod(*arrays_then_mod) -> np.ndarray:
-    """Elementwise product of object-int arrays modulo the last argument."""
+    """Elementwise product of object-int arrays modulo the last argument.
+    From NATIVE_MIN_LANES products on it runs on GMP (native.hostmul), as
+    in the reference, where the input allows (_native_width); else a python
+    loop.  Both give the same values."""
     t0 = time.perf_counter() if PROFILE else 0.0
     *arrays, mod = arrays_then_mod
     arrays = [np.asarray(a, dtype=object) for a in arrays]
     mod = np.asarray(mod, dtype=object)
     shape = np.broadcast_shapes(*(a.shape for a in arrays), mod.shape)
-    flat = [np.broadcast_to(a, shape).reshape(-1) for a in arrays]
-    fm = np.broadcast_to(mod, shape).reshape(-1)
-    out = np.empty(fm.shape[0], dtype=object)
-    for b in range(fm.shape[0]):
-        acc = 1
-        m = int(fm[b])
-        for a in flat:
-            acc = acc * int(a[b]) % m
-        out[b] = acc
+    cols = [_ints(np.broadcast_to(a, shape)) for a in arrays]
+    mods = _ints(np.broadcast_to(mod, shape))
+    B = len(mods)
+    W = _native_width(cols, mods, B)
+    if W is not None:
+        raw = native.hostmul.mulmod_batch([_pack_ints(c, W) for c in cols],
+                                          _pack_ints(mods, W), B, W)
+        out = _unpack_ints(raw, B, W)
+    else:
+        out = np.empty(B, dtype=object)
+        for b in range(B):
+            acc = 1
+            m = mods[b]
+            for c in cols:
+                acc = acc * c[b] % m
+            out[b] = acc
     if PROFILE:
-        PROFILE_LOG.append(("host:mulmod", fm.shape[0] * len(flat), 0, "-",
-                            time.perf_counter() - t0))
+        PROFILE_LOG.append(("host:mulmod", B * len(cols), 0, "-", time.perf_counter() - t0))
     return out.reshape(shape)
 
 
@@ -240,21 +290,28 @@ def host_invmod(a, mod) -> np.ndarray:
 
 
 def host_prod_axis0(vals, mod) -> np.ndarray:
-    """prod over the leading axis of object-int `vals` modulo `mod`."""
+    """prod over the leading axis of object-int `vals` modulo `mod`.  From
+    NATIVE_MIN_LANES values (S * J) on it runs on GMP, as host_mulmod."""
     t0 = time.perf_counter() if PROFILE else 0.0
     vals = np.asarray(vals, dtype=object)
     S, rest = vals.shape[0], vals.shape[1:]
-    fm = np.broadcast_to(np.asarray(mod, dtype=object), (1,) + rest).reshape(-1)
-    flat = vals.reshape(S, -1)
-    out = np.empty(flat.shape[1], dtype=object)
-    for j in range(flat.shape[1]):
-        m = int(fm[j])
-        acc = 1
-        for s in range(S):
-            acc = acc * int(flat[s, j]) % m
-        out[j] = acc
+    mods = _ints(np.broadcast_to(np.asarray(mod, dtype=object), (1,) + rest))
+    flat = _ints(vals)
+    J = len(mods)
+    W = _native_width([flat], mods, S * J)
+    if W is not None:
+        raw = native.hostmul.prodmod_axis0(_pack_ints(flat, W), S, _pack_ints(mods, W), J, W)
+        out = _unpack_ints(raw, J, W)
+    else:
+        out = np.empty(J, dtype=object)
+        for j in range(J):
+            m = mods[j]
+            acc = 1
+            for s in range(S):
+                acc = acc * flat[s * J + j] % m
+            out[j] = acc
     if PROFILE:
-        PROFILE_LOG.append(("host:prodax0", int(flat.size), 0, "-", time.perf_counter() - t0))
+        PROFILE_LOG.append(("host:prodax0", S * J, 0, "-", time.perf_counter() - t0))
     return out.reshape((1,) + rest)
 
 

@@ -1,16 +1,16 @@
-"""Pure-python secp256k1 — golden oracle and host-side EC (port of tpu_mpc/host/ec.py).
+"""secp256k1 on the host — golden oracle and host-side EC (port of tpu_mpc/host/ec.py).
 
 `ecdsa_verify_batch` is the batched signature check of GG20, GG18 and
-Lindell'17 signing (protocols/gg18/batch.py:_finish_signatures).  The
-reference runs that check through OpenSSL (`cryptography`), which the port
-does not import; the port's is standard-library python (Jacobian
-coordinates, Shamir's trick, window tables) that gives OpenSSL's answer
-case for case, a key off the curve included.  The reference's
-`ecdsa_verify_openssl` is not carried over: its role, a check independent
-of the repo's EC code, is played by the tests, which call the reference's
-OpenSSL functions on the same cases.  `ecdsa_verify` stays the
-single-signature oracle of the runtime and of CCLST'19, as in the
-reference.
+Lindell'17 signing (protocols/gg18/batch.py:_finish_signatures).  As in the
+reference, it runs through OpenSSL, a check independent of the repo's EC
+code: the reference reaches OpenSSL through `cryptography`, which the port
+does not import; the port calls libcrypto through ctypes (native.openssl),
+with the same answers case for case.  `ecdsa_verify_openssl` is the
+single-signature form.  `ecdsa_verify_batch_plain` (Jacobian coordinates,
+Shamir's trick, window tables; standard-library python) gives the same
+answers too: it is the plain version that the tests and chip_smoke.py hold
+the OpenSSL verifier against.  `ecdsa_verify` stays the single-signature
+oracle of the runtime and of CCLST'19, as in the reference.
 
 Mirrors the behavior of curv's secp256k1 `Point`/`Scalar` (used throughout
 ZenGo-X/multi-party-ecdsa, e.g. src/protocols/multi_party_ecdsa/gg_2020/party_i.rs:627-633).
@@ -22,6 +22,8 @@ from __future__ import annotations
 import functools
 import hashlib
 from typing import Optional, Tuple
+
+from .. import native
 
 # secp256k1 domain parameters
 P = 2**256 - 2**32 - 977
@@ -231,19 +233,50 @@ def _verify_one(tab_y: list, m: int, r: int, s: int) -> bool:
     return X * zi * zi % P % N == r
 
 
-def ecdsa_verify_batch(pubkeys, msg_hashes, rs, ss) -> list:
-    """ECDSA verification over a batch -> list of bools, with the answers of
-    the reference's OpenSSL verifier (tpu_mpc/host/ec.py:ecdsa_verify_batch):
-    False for a None key, a key OpenSSL refuses (see _key_table), r or s
-    outside [1, N), or u1 G + u2 Y at infinity; the message is taken mod N
-    and a high s is accepted.  One window table per distinct key (one signer
-    group signing many messages pays for it once)."""
+def ecdsa_verify_batch_plain(pubkeys, msg_hashes, rs, ss) -> list:
+    """The plain version of ecdsa_verify_batch, in python, with the answers
+    of the reference's OpenSSL verifier (tpu_mpc/host/ec.py:
+    ecdsa_verify_batch): False for a None key, a key OpenSSL refuses (see
+    _key_table), r or s outside [1, N), or u1 G + u2 Y at infinity; the
+    message is taken mod N and a high s is accepted.  One window table per
+    distinct key (one signer group signing many messages pays for it
+    once).  Only the tests and chip_smoke.py call it."""
     tables: dict = {}
     out = []
     for pub, m, r, s in zip(pubkeys, msg_hashes, rs, ss):
         tab = None if pub is None else _key_table(pub, tables)
         out.append(tab is not None and _verify_one(tab, int(m), int(r), int(s)))
     return out
+
+
+# --- OpenSSL (the reference's ecdsa_verify_openssl / ecdsa_verify_batch) ---
+
+def ecdsa_verify_batch(pubkeys, msg_hashes, rs, ss) -> list:
+    """ECDSA verification over a batch through OpenSSL's libcrypto -> list
+    of bools (tpu_mpc/host/ec.py:ecdsa_verify_batch).  False for a None
+    key, a negative coordinate, a point OpenSSL refuses (off the curve once
+    x and y are reduced mod p, as (x + p, y) is not), a negative r or s,
+    and whatever ECDSA_do_verify does not accept on (m mod N) as 32
+    big-endian bytes.  One EC_KEY per distinct key of the batch."""
+    keys: dict = {}
+    out = []
+    with native.openssl.verifier() as v:
+        for pub, m, r, s in zip(pubkeys, msg_hashes, rs, ss):
+            if pub is None:  # the point at infinity is never a valid public key
+                out.append(False)
+                continue
+            key = keys.get(pub, False)
+            if key is False:
+                key = keys[pub] = v.key(int(pub[0]), int(pub[1]))
+            out.append(key is not None
+                       and v.verify(key, (int(m) % N).to_bytes(32, "big"), int(r), int(s)))
+    return out
+
+
+def ecdsa_verify_openssl(pubkey: Point, msg_hash: int, r: int, s: int) -> bool:
+    """One signature through OpenSSL (tpu_mpc/host/ec.py:ecdsa_verify_openssl):
+    ecdsa_verify_batch of one."""
+    return ecdsa_verify_batch([pubkey], [msg_hash], [r], [s])[0]
 
 
 def ecdsa_sign(priv: int, msg_hash: int, k: int) -> Tuple[int, int]:

@@ -1,12 +1,12 @@
-"""Prime generation on the host (port of tpu_mpc/host/primes.py, with its
-own copy of the draw of the reference's C++ helper,
-tpu_mpc/native/primegen.cpp).  Standard library only.
+"""Prime generation on the host (port of tpu_mpc/host/primes.py).
 
-The reference takes its primes from the native helper whenever the helper
+The reference takes its primes from its native helper whenever the helper
 accepts the width (64 | bits, 128 <= bits <= 4096), and from a python
-Miller-Rabin search over random.Random otherwise.  The port draws the
-helper's primes in pure python, value for value, so that a keygen under a
-pinned seed reproduces the reference's keys:
+Miller-Rabin search over random.Random otherwise.  The port does the same
+through its own copy of the helper (native/primegen.cpp), so that a keygen
+under a pinned seed reproduces the reference's keys.  The helper's draw,
+which _helper_gen_prime and _helper_gen_safe_prime write out in python as
+the plain versions that the tests and chip_smoke.py hold it against:
 
   * the candidates and the Miller-Rabin witnesses come from ONE splitmix64
     stream, seeded with seed ^ 0xA5A5A5A5DEADBEEF (random primes) or
@@ -19,15 +19,22 @@ pinned seed reproduces the reference's keys:
     witness that proves the candidate composite (primegen.cpp:160-197);
   * safe primes p = 2q + 1: q has its top two bits 01 and its low bit set,
     q and 2q + 1 are sieved by the same primes, then Miller-Rabin rounds
-    2 (q), 2 (p), 26 (q), 26 (p) (primegen.cpp:237-269).
+    2 (q), 2 (p), 26 (q), 26 (p) (primegen.cpp:safe_pair).
 
 That draw is kept for seeded runs only: a prime drawn from a 64-bit seed is
 one of at most 2^64 values, so a modulus made of two of them can be
 factored with about 2^64 work.  An unseeded draw (no rng, or the OS's
 random.SystemRandom, which an unseeded SessionRng holds) takes every
-candidate's bits and every witness from the OS (secrets) and never goes
-through a 64-bit state; it keeps the helper's Miller-Rabin rounds (28 for
-a random prime; 2, 2, 26, 26 after the double sieve for a safe prime).
+candidate's bits from the OS (secrets) and never goes through a 64-bit
+state.  Where the helper accepts the width it tests the candidate there
+with the helper's rounds (tpu_mpc_is_prime: 28; tpu_mpc_is_safe_prime: the
+double sieve, then 2, 2, 26, 26), witnesses from 64 fresh OS bits a call.
+Such witnesses do not weaken the prime: its secrecy rests on the
+candidate's bits alone, and the witnesses are fixed after the candidate,
+independently of it, and then thrown away, so no one can choose a
+composite that they pass, and a random composite passes a round with
+probability far below 1/4.  At other widths the python test runs with OS
+witnesses (is_probable_prime).
 
 Prime search is a rejection loop, the one part of keygen that cannot be
 constant-shape: it stays on the host.  The parallel variants draw one
@@ -44,6 +51,8 @@ import os
 import random
 import secrets
 import sys
+
+from .. import native
 
 _M64 = (1 << 64) - 1
 _SEED_PRIME = 0xA5A5A5A5DEADBEEF
@@ -99,7 +108,7 @@ def is_probable_prime(n: int, rounds: int = 32, rng: random.Random | None = None
 
 
 # --------------------------------------------------------------------------
-# the helper's draw (primegen.cpp), in python
+# the helper's draw (primegen.cpp), in python: its plain version
 # --------------------------------------------------------------------------
 
 class _SplitMix64:
@@ -156,7 +165,8 @@ def _helper_accepts(bits: int) -> bool:
 
 
 def _helper_gen_prime(bits: int, seed: int) -> int:
-    """primegen.cpp:tpu_mpc_gen_prime (bits accepted by _helper_accepts)."""
+    """The plain version of primegen.cpp:tpu_mpc_gen_prime (bits accepted by
+    _helper_accepts); only the tests and chip_smoke.py call it."""
     limbs = bits // 64
     st = _SplitMix64(seed ^ _SEED_PRIME)
     top = 1 << (bits - 1)
@@ -169,7 +179,8 @@ def _helper_gen_prime(bits: int, seed: int) -> int:
 
 
 def _helper_gen_safe_prime(bits: int, seed: int) -> int:
-    """primegen.cpp:tpu_mpc_gen_safe_prime (bits accepted by _helper_accepts)."""
+    """The plain version of primegen.cpp:tpu_mpc_gen_safe_prime (bits accepted
+    by _helper_accepts); only the tests and chip_smoke.py call it."""
     limbs = bits // 64
     st = _SplitMix64(seed ^ _SEED_SAFE)
     top2, low = 1 << (bits - 2), (1 << (bits - 1)) - 1
@@ -195,22 +206,32 @@ def _unseeded(rng) -> bool:
 
 def _os_gen_prime(bits: int) -> int:
     """A prime of exactly `bits` bits from OS candidates, held to the
-    helper's 28 Miller-Rabin rounds (is_probable_prime: OS witnesses, after
-    trial division by the primes below 10000)."""
+    helper's 28 Miller-Rabin rounds: the helper's test where it accepts the
+    width, with 64 fresh OS bits of witness seed; else is_probable_prime
+    (OS witnesses, after trial division by the primes below 10000)."""
     top = 1 << (bits - 1)
+    native_test = _helper_accepts(bits)
     while True:
         cand = secrets.randbits(bits) | top | 1
-        if is_probable_prime(cand, _NATIVE_MR_ROUNDS):
+        if (native.primegen.is_prime(cand, secrets.randbits(64)) if native_test
+                else is_probable_prime(cand, _NATIVE_MR_ROUNDS)):
             return cand
 
 
 def _os_gen_safe_prime(bits: int) -> int:
     """A safe prime p = 2q + 1 of exactly `bits` bits from OS candidates: q
     with its top two bits 01, the helper's double sieve, then its rounds
-    2 (q), 2 (p), 26 (q), 26 (p) (is_probable_prime, OS witnesses)."""
+    2 (q), 2 (p), 26 (q), 26 (p): in the helper where it accepts the width
+    (64 fresh OS bits of witness seed), else in python (is_probable_prime,
+    OS witnesses)."""
     top2, low = 1 << (bits - 2), (1 << (bits - 1)) - 1
+    native_test = _helper_accepts(bits)
     while True:
         q = ((secrets.randbits(bits) | top2) & low) | 1
+        if native_test:
+            if native.primegen.is_safe_prime(q, secrets.randbits(64)):
+                return 2 * q + 1
+            continue
         p = 2 * q + 1
         if any(q % sp == 0 or p % sp == 0 for sp in _HELPER_PRIMES if sp < q):
             continue
@@ -227,7 +248,7 @@ def gen_prime(bits: int, rng: random.Random | None = None) -> int:
         return _os_gen_prime(bits)
     seed = rng.getrandbits(64)
     if _helper_accepts(bits):
-        return _helper_gen_prime(bits, seed)
+        return native.primegen.gen_prime(bits, seed)
     while True:
         cand = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
         if is_probable_prime(cand, rng=rng):
@@ -243,7 +264,7 @@ def gen_safe_prime(bits: int, rng: random.Random | None = None) -> int:
         return _os_gen_safe_prime(bits)
     seed = rng.getrandbits(64)
     if _helper_accepts(bits):
-        return _helper_gen_safe_prime(bits, seed)
+        return native.primegen.gen_safe_prime(bits, seed)
     while True:
         q = gen_prime(bits - 1, rng)
         p = 2 * q + 1
@@ -256,7 +277,7 @@ def _one_prime(job) -> int:
     if seed is None:
         return _os_gen_prime(bits)
     if _helper_accepts(bits):
-        return _helper_gen_prime(bits, seed)
+        return native.primegen.gen_prime(bits, seed)
     r2 = random.Random(seed)  # per-seed fallback keeps parallel determinism
     while True:
         cand = r2.getrandbits(bits) | (1 << (bits - 1)) | 1
@@ -269,7 +290,7 @@ def _one_safe_prime(job) -> int:
     if seed is None:
         return _os_gen_safe_prime(bits)
     if _helper_accepts(bits):
-        return _helper_gen_safe_prime(bits, seed)
+        return native.primegen.gen_safe_prime(bits, seed)
     r2 = random.Random(seed)
     while True:
         q = gen_prime(bits - 1, r2)
@@ -289,15 +310,17 @@ def _fan_out(fn, bits: int, count: int, rng, workers):
     if workers is None:
         workers = (os.cpu_count() or 1) if bits >= _POOL_MIN_BITS else 1
     workers = min(count, workers)
+    if _helper_accepts(bits):
+        native.lib("primegen")  # built here once, not by each worker
     if workers <= 1:
         return [fn(j) for j in jobs]
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    # pure python does not scale over threads: worker processes search one
-    # seed each.  They are spawned, not forked, since the caller may run
-    # threads (torch, CUDA) that a forked child would inherit half-locked;
-    # a spawned worker imports this module and nothing else of the package.
+    # worker processes search one seed each.  They are spawned, not forked,
+    # since the caller may run threads (torch, CUDA) that a forked child
+    # would inherit half-locked; a spawned worker imports this module and
+    # the native layer (standard library only), nothing else of the package.
     with _bare_main(), ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         return list(ex.map(fn, jobs))
@@ -308,8 +331,9 @@ def _bare_main():
     """A spawned worker first runs the parent's __main__ module again, found
     by its __spec__ or __file__: for a party process started with `python -m
     tpu_mpc_torch.runtime.cli` that is the package and torch, seconds a
-    worker.  The jobs need only this module, so both are hidden while the
-    workers start (they start inside the pool's block)."""
+    worker.  The jobs need only this module and the native layer, so both
+    are hidden while the workers start (they start inside the pool's
+    block)."""
     main = sys.modules["__main__"]
     saved = {k: main.__dict__[k] for k in ("__spec__", "__file__") if k in main.__dict__}
     main.__spec__ = None
