@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
              source, all started together) and print the build seconds;
   2. native  the native host layer (tpu_mpc_torch/native/): prints the g++
              version, the build seconds and the paths of libgmp, libcrypto
-             and the two libraries; seeded 1024-bit primes (4 seeds) and
+             and the two libraries; seeded 1024-bit primes (2 seeds) and
              512-bit safe primes (2 seeds), each equal to its plain python
              draw; two unseeded 1024-bit primes that pass
              is_probable_prime; host_mulmod and host_prod_axis0 at the
@@ -27,10 +27,12 @@ Phases (any failure exits non-zero and prints no result line):
              time both (CUDA events); K2's table builds are timed too.  K1
              and K2 also at lane counts that are not a multiple of their
              lane tile (1, L - 1, L + 1; 513 for K1), with one modulus per
-             lane inside a tile, K2 with three key groups in every tile,
-             and K1 at 4096 bits, whose tensor-core planes partly stream
-             from L2 (also at 512 lanes with 256-bit exponents, blame's
-             shape, and the two-party shapes: 5120 lanes with 2048-bit
+             lane inside a tile, K2 with three key groups in every tile
+             (and at 2048 bits with 5 and 8 groups a call in the caller's
+             lane order, up to 8 groups in a tile), and K1 at 4096 bits,
+             whose tensor-core planes partly stream from L2 (also at 512
+             lanes with 256-bit exponents, blame's shape, and the two-party
+             shapes: 5120 lanes with 2048-bit
              exponents, range_proof_ni's stacked encryptions, more than one
              wave of blocks; 64 lanes with 256-bit exponents, Lindell'17
              sign's c_key^v).  K3 (ns = 2 and 4, an infinity base and k = 0) and
@@ -97,7 +99,7 @@ Phases (any failure exits non-zero and prints no result line):
              kernels and take the G = 8 batch verification with no
              per-session fallback; every signature of the warm-up pass
              verifies under its own group's y.
-  8. blame   GG20 identifiable aborts on the slice's tables key (S = 16,
+  8. blame   GG20 identifiable aborts on the slice's tables key (S = 8,
              signers [0, 1]): offline_stage with delta_i (step 5), sigma_i
              (step 6) or the committed g_gamma ("decommit") of per-session
              corruption matrices, a clean offline_stage with s_i corrupted
@@ -106,13 +108,27 @@ Phases (any failure exits non-zero and prints no result line):
              exactly in the corrupted sessions, honest sessions verify; every
              K1-K5 launch shape held against its plain version; prints each
              blame function's seconds and the host Paillier open loop's;
-  9. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
-             every signer pair reconstructs sum u, every launch shape held),
-             then GG18 sign at S = 128 on the slice's tables key for the
-             signer subsets [0, 1], [1, 2], [0, 2] (one warm-up pass with the
-             holds, then one timed pass each): every signature verifies with
-             low s; prints the prime-search seconds and sig/s.
- 10. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
+  9. quorum  GG20 with more than two signers at 2048-bit Paillier and N~:
+             keygen(1, 2, 5) and keygen(1, 4, 8) under fixed seeds (res.ok,
+             no bad actors), then one timed tables pass of the n = 5 key
+             with signers [0, 2, 3, 4] at S = 512 and of the n = 8 key with
+             signers [0, 1, 2, 4, 6, 7] at S = 256, and one uniform pass of
+             the n = 5 quorum at S = 128 (no K2): every offline check, every
+             signature through ecdsa_verify_batch; prints each pass's
+             seconds, sig/s, kernel ms and launches by kernel and shape,
+             each shape's bound and peak card memory; then n = 5 blame on
+             the tables key at S = 2 (steps 5 and 6 on [[0], [0, 3]], step
+             7 on [[1, 3], []]), every list equal to its spec.  The first
+             launch at each shape of each run keeps up to 64 lanes, held
+             after the phase against the kernel's plain version;
+ 10. gg18    GG18 keygen(16, 1, 3) at 2048 bits (every check, y = (sum u) G,
+             every signer subset reconstructs sum u, every launch shape
+             held), then GG18 sign at S = 128 on the slice's tables key for
+             the signer subsets [0, 1], [1, 2], [0, 2] and [0, 1, 2] (a
+             warm-up pass with the holds for two and for three signers, then
+             one timed pass each): every signature verifies with low s;
+             prints the prime-search seconds and sig/s.
+ 11. lindell17  Lindell'17 two-party ECDSA at S = 64 sessions, 2048-bit
              Paillier and N~, each session its own key (no tables, no K2):
              keygen (every ok, y = (x1 x2) G), sign of MSG_2P (a warm-up
              pass with the holds, a timed pass; every signature verifies
@@ -122,10 +138,10 @@ Phases (any failure exits non-zero and prints no result line):
              rejected); every launch shape held against its plain version;
              prints keygen's prime search, kernel and other seconds, sig/s,
              the refresh and PDL seconds, and per kernel ms and launches;
- 11. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
+ 12. cclst19 CCLST'19 keygen(1) at the 1348-bit discriminant and sign of
              MSG_2P, host only: valid, low s, no kernel launched; prints
              the host seconds.
- 12. runtime the GG20 state machines in this process on the card, replaying
+ 13. runtime the GG20 state machines in this process on the card, replaying
              the JAX package's transcript tests/gpu/fixtures/runtime_768.json
              (run_simulation over three Gg20Keygen at 768 bits, an offline
              stage and sign_manual): every message string and output equal
@@ -138,7 +154,7 @@ Phases (any failure exits non-zero and prints no result line):
              shares reconstruct, equal valid low-s signatures).  Every child
              must exit 0 on the card with K1, K3, K4, K5 launched; prints the
              walls and one process's import-torch-and-CUDA-context time.
- 13. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
+ 14. sharding the slice's tables pass (S = 128, SessionRng(SLICE_SEED))
              under sessions_mesh() (every visible card), under a mesh that
              repeats the card 4 times, and over two real cards where there
              are two: a warm-up pass holding every K1-K5 piece shape against
@@ -154,7 +170,9 @@ Then it prints one JSON line {"kernels": [...]} (launches: the first timed
 tables pass of the slice; launches_keygen: the S = 16 keygen;
 launches_scale_tables, launches_scale_refexact: the scale phase's passes;
 launches_multitenant: the timed multi-tenant pass; launches_blame:
-the blame phase; launches_gg18: the timed GG18 [0, 1] pass;
+the blame phase; launches_quorum_keygen_n5, _keygen_n8, _tables_n5,
+_tables_n8, _uniform_n5, _blame_n5: the quorum phase's runs;
+launches_gg18: the timed GG18 [0, 1] pass;
 launches_lindell17: the lindell17 phase; launches_runtime: the runtime
 phase's replay; launches_sharding: the timed pass under the 4-entry mesh,
 one launch a piece), the card's name and power limit,
@@ -178,8 +196,9 @@ S_SESSIONS = 128
 SLICE_SEED = 0xC41B                  # the slice's SessionRng seed
 # blame's sessions: its host Paillier opens (~0.24 s each on the card's host)
 # grow with S, so it runs at an eighth of the slice's S to keep the whole
-# run in time (64 until the sharding phase came, 32 until the scale phase)
-BLAME_S = 16
+# run in time (64 until the sharding phase came, 32 until the scale phase,
+# 16 until the quorum phase)
+BLAME_S = 8
 K1_LANES = {2048: 512, 4096: 256}   # the slice's K1 batches: S*tp*2 (CRT halves), S*tp*2 (N^2)
 EC_LANES = 256                       # S*tp
 EC_RAGGED = (1, 7, 9, 33, 257)       # K3/K4/K5 lane counts off their 8-, 16-, 32-lane blocks
@@ -261,7 +280,7 @@ def _maxerr(a, b) -> int:
 # phase 2: the native host layer
 # --------------------------------------------------------------------------
 
-NATIVE_PRIME_SEEDS = (1, 2, 3, 4)    # seeded 1024-bit primes
+NATIVE_PRIME_SEEDS = (1, 2)          # seeded 1024-bit primes
 NATIVE_SAFE_SEEDS = (1, 2)           # seeded 512-bit safe primes
 GMP_LANES = 4096                     # host_mulmod's lanes at S = 4096
 VERIFY_SIGS = 4096                   # signatures of one key through both verifiers
@@ -831,6 +850,7 @@ def check_k2(dev, rnd):
             log(f"K2 {name}, lanes in the caller's order (mixed groups in a tile of {L}), "
                 f"lanes {B}, 1, {L - 1}, {L + 1}: exact")
     worst = max(worst, _check_k2_three_groups_4096(dev, rnd))
+    worst = max(worst, _check_k2_many_groups(dev, rnd))
     for k, v in builds.items():
         log(f"K2 table build {k}: {v:.2f} s")
     entry["max_abs_err"] = worst
@@ -877,6 +897,54 @@ def _check_k2_three_groups_4096(dev, rnd) -> int:
             require(int(got[i]) == want, f"K2 4096b three groups lane {i} != python pow")
     log(f"K2 4096b, three key groups in every tile of {L}, lanes {L - 1}, {L + 1}, "
         f"{3 * L + 1}: exact")
+    return worst
+
+
+K2_MANY_GROUPS = (5, 8)                # key groups of one call: the n = 5 and n = 8 keys
+
+
+def _check_k2_many_groups(dev, rnd) -> int:
+    """K2 at 2048 bits with 5 and then 8 key groups in one call, the lanes in
+    the caller's order, so that a tile of 8 lanes holds up to 8 groups (two
+    staged, the others read from L2), at ragged lane counts; exact against
+    fixed_plain, and python pow on the first and last lanes.  Returns the
+    largest |diff| (0)."""
+    import numpy as np
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.modctx import ModCtx
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
+    bits, ebits = 2048, 64
+    par = RnsParams(bits)
+    L = pr.LANE_TILE
+    worst = 0
+    for G in K2_MANY_GROUPS:
+        ns = np.asarray(_odd_moduli(rnd, bits, G, par), dtype=object)
+        hb = np.asarray([[rnd.getrandbits(bits) % int(n) for n in ns]], dtype=object)
+        T = ModCtx.from_ints(ns, bits, dev).make_tables_rns(hb, ebits)[0]
+        for B in (L - 1, L + 1, G * L + 3):
+            gmap = np.asarray([(3 * i + i // G) % G for i in range(B)])
+            expo = np.asarray([rnd.getrandbits(ebits) for _ in range(B)], dtype=object)
+            e = torch.as_tensor(pr._pack_words(batch_to_limbs(expo, nlimbs(ebits))), device=dev)
+            args = (e, torch.as_tensor(gmap, device=dev),
+                    RnsCtx.from_ints(ns[gmap], bits, dev).rows, [T], [ebits // 4], [0], bits)
+            out_k = pr.fixed_call(*args)
+            out_p = pr.fixed_plain(*args)
+            torch.cuda.synchronize()
+            err = _maxerr(out_k, out_p)
+            worst = max(worst, err)
+            require(err == 0 and out_k.shape == out_p.shape,
+                    f"K2 {G} groups lanes={B}: kernel != plain (max |diff| {err})")
+            got = RnsLazy((out_k,), (B,), ns[gmap], par.MA).ints()
+            for i in sorted({0, 1, B - 1}):
+                want = pow(int(hb[0, gmap[i]]), int(expo[i]), int(ns[gmap[i]]))
+                require(int(got[i]) == want, f"K2 {G} groups lane {i} != python pow")
+    log(f"K2 {bits}b, {' and '.join(map(str, K2_MANY_GROUPS))} key groups a call in the caller's "
+        f"lane order (up to 8 groups in a tile of {L}), lanes {L - 1}, {L + 1}, G * {L} + 3: "
+        f"exact")
     return worst
 
 
@@ -1567,7 +1635,7 @@ def take_sample(name, shape, new, a, kw, out) -> dict:
         e, grow, rows, tables, nwins, woffs, nbits = a[:7]
         g = pick(grow).long()
         # each base's entry T[0][1] (its base x, in Montgomery form) per lane
-        smp.update(e=pick(e), rows=pick(rows), nbits=nbits, nwins=list(nwins),
+        smp.update(e=pick(e), grow=pick(grow), rows=pick(rows), nbits=nbits, nwins=list(nwins),
                    woffs=list(woffs), bases=[T[0, 1].index_select(0, g) for T in tables])
     elif name == "K3":
         smp.update(pts=pick(a[0]), dg=pick(a[1]), neg=pick(a[2]))
@@ -2069,23 +2137,319 @@ def run_blame(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phase 9: GG18
+# phase 9: wide quorums
+# --------------------------------------------------------------------------
+
+# n: (t, keygen seed), each keygen(1, t, n) at PAILLIER_BITS
+QUORUM_KEYGENS = {5: (2, 0x2505), 8: (4, 0x4808)}
+# (n, signers, S) of the timed tables passes: the JAX package's wide quorums
+# (tests/test_gg20_adv_quorum.py), S chosen for 6144 and 7680 MtA pairs,
+# about the 8192 of the S = 4096 pass
+QUORUM_PASSES = ((5, [0, 2, 3, 4], 512), (8, [0, 1, 2, 4, 6, 7], 256))
+QUORUM_UNIFORM_S = 128
+QUORUM_SEED = 0x0A11
+# n = 5 blame at S = 2, the scenarios of tests/test_gg20_adv_quorum{5,6,7}.py
+QUORUM_BLAME = {5: [[0], [0, 3]], 6: [[0], [0, 3]], 7: [[1, 3], []]}
+
+
+def _hold_class(smp) -> tuple:
+    """Sampled launches with equal keys share one plain call: the same kernel
+    at the same widths, exponent words, tables and chunk split (K2), comb
+    table (K4) or base count (K3)."""
+    from tpu_mpc_torch.core import pallas_rns as pr
+
+    name = smp["name"]
+    if name == "K1":
+        return name, smp["nbits"], tuple(smp["x"].shape[1:]), tuple(smp["e"].shape[1:]), smp["emit"]
+    if name == "K2":
+        return (name, smp["nbits"], tuple(smp["e"].shape[1:]), tuple(id(t) for t in smp["shared"]),
+                tuple(smp["nwins"]), tuple(smp["woffs"]),
+                pr.k2_split(smp["B"], sum(smp["nwins"])))
+    if name == "K3":
+        return name, tuple(smp["pts"].shape[1:]), tuple(smp["dg"].shape[1:])
+    if name == "K4":
+        return name, id(smp["shared"])
+    return (name,)
+
+
+def hold_plain(samples) -> tuple:
+    """Holds every sampled launch against its kernel's plain version on the
+    sample's lanes (the inputs gathered at the launch, shared ctx rows
+    repeated a lane, and the launch's tables: `shared`), the samples of one
+    _hold_class in one plain call; any difference fails.  -> (launch shapes,
+    lanes, plain calls)."""
+    import torch
+
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.ec import pallas_ec as pe
+
+    groups = {}
+    for smp in samples:
+        groups.setdefault(_hold_class(smp), []).append(smp)
+    lanes = 0
+    for key, smps in groups.items():
+        name = key[0]
+        cat = lambda f: torch.cat([smp[f] for smp in smps])
+        rows = lambda: torch.cat([smp["rows"].expand(len(smp["lanes"]), -1) for smp in smps])
+        if name == "K1":
+            want = pr.exp_plain(cat("x"), cat("e"), rows(), key[1], key[4])
+        elif name == "K2":
+            want = pr.fixed_plain(cat("e"), cat("grow"), rows(), smps[0]["shared"],
+                                  list(key[4]), list(key[5]), key[1], split=key[6])
+        elif name == "K3":
+            want = pe.ladder_plain(cat("pts"), cat("dg"), cat("neg"))
+        elif name == "K4":
+            want = pe.comb_plain(cat("dg"), smps[0]["shared"])
+        else:
+            want = pe.affine_plain(cat("pts"))
+        got = cat("out")
+        if not torch.equal(got, want):
+            o = 0
+            for smp in smps:
+                n = len(smp["lanes"])
+                err = _maxerr(got[o:o + n], want[o:o + n])
+                require(err == 0, f"{smp['shape']}: kernel != plain on {n} lanes "
+                        f"(max |diff| {err})")
+                o += n
+            require(False, f"{name}: kernel != plain")
+        lanes += got.shape[0]
+    return len(samples), lanes, len(groups)
+
+
+def run_quorum(dev) -> dict:
+    """GG20 with more than two signers at 2048-bit Paillier and N~.
+    keygen(1, 2, 5) and keygen(1, 4, 8) under fixed seeds (tables
+    configuration; res.ok, no bad actors, y = (sum u) G, the x shares of the
+    pass's signers reconstruct sum u); then one timed tables pass a quorum
+    of QUORUM_PASSES (n = 5 signers [0, 2, 3, 4] at S = 512; n = 8 signers
+    [0, 1, 2, 4, 6, 7] at S = 256) and one uniform pass of the n = 5
+    quorum at S = 128: every offline check holds, the batched checks run
+    with no per-session fallback, every signature passes the pass's one
+    ecdsa_verify_batch call and SIG_SAMPLE of them ecdsa_verify; then n = 5
+    blame on the tables key at S = 2 (steps 5 and 6 on [[0], [0, 3]], step 7
+    on [[1, 3], []] of a clean pass), every list equal to its spec.  The
+    first launch at each shape of each run keeps up to SAMPLE_LANES lanes,
+    which are held against the plain version after the phase (hold_plain).
+    Kernel counts are set to 0 just before each run and read just after.
+    Logs each pass's seconds, sig/s, kernel ms and launches by kernel and
+    shape, each shape's bound, and peak card memory.  Returns the launches
+    of each run."""
+    import torch
+
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.ec import secp256k1 as dec
+    from tpu_mpc_torch.host import ec as hec
+    from tpu_mpc_torch.host import paillier as hp
+    from tpu_mpc_torch.protocols.gg20 import batch as gg20
+    from tpu_mpc_torch.protocols.gg20 import blame
+    from tpu_mpc_torch.utils.rng import SessionRng
+    from tpu_mpc_torch.vss import feldman
+    from tpu_mpc_torch.zk import batch_verify as bv
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in (ENC_ENV, BV_ENV)}
+    os.environ.pop(BV_ENV, None)
+    os.environ[ENC_ENV] = "1"
+    out, keys, samples = {}, {}, []
+    signers_of = {n: signers for n, signers, _ in QUORUM_PASSES}
+
+    def shapes_line(label, inst):
+        """Per launch shape of a run: launches, ms a launch and bound.  Then
+        each sample lets go of its launch's arguments but for its tables
+        (K2, K4), so that the held samples keep no pass's tensors alive."""
+        rows = []
+        for smp in inst.samples:
+            sh = smp["shape"]
+            a = smp.pop("args")
+            smp["B"] = a[0].shape[0]
+            smp["shared"] = a[3] if smp["name"] == "K2" else a[1] if smp["name"] == "K4" else None
+            bms, bby, ims = launch_bound(smp["name"], a)
+            second = {"K1": "IMAD", "K2": "IMAD", "K5": "divstep"}.get(smp["name"])
+            rows.append(f"{sh}{' (new)' if smp['new'] else ''}: {inst.by_shape[sh]} x "
+                        f"{inst.shape_ms(sh):.4f} ms, bound {bms:.5f} ms ({bby})"
+                        + (f", {second} {ims:.5f}" if second else ""))
+        log(f"{label}: launch shapes (launches x kernel ms a launch, bound): " + "; ".join(rows))
+
+    try:
+        for n, (t, seed) in QUORUM_KEYGENS.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with _Timed(gg20, "gen_paillier_batch") as primes_t, \
+                    Instrument(set(), sampled=set()) as inst:
+                t0 = time.perf_counter()
+                res = gg20.keygen(1, t, n, SessionRng(seed), PAILLIER_BITS, device=dev)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            require(res.ok.all() and not res.bad_actors.any(),
+                    f"quorum keygen n={n}: a check failed: bad actors {res.bad_actors.tolist()}")
+            key = res.key
+            total = sum(int(v) for v in key.u[0]) % hec.N
+            require(dec.points_to_host_list(key.y)[0] == hec.mul(total),
+                    f"quorum keygen n={n}: y != (sum u) G")
+            sg = signers_of[n]
+            require(feldman.reconstruct(sg, [int(key.x[0, j]) for j in sg]) == total,
+                    f"quorum keygen n={n}: the x shares of {sg} do not reconstruct sum u")
+            missing = [k for k in ("K1", "K3", "K4", "K5") if launches[k] == 0]
+            require(not missing, f"quorum keygen n={n}: kernels not launched: {missing}")
+            log(f"quorum keygen(1, {t}, {n}) (seed {seed:#x}, {PAILLIER_BITS}-bit Paillier and "
+                f"N~): res.ok, no bad actors, y = (sum u) G, the x shares of {sg} reconstruct "
+                f"sum u; wall {dt:.2f} s, host prime search {primes_t.secs:.2f} s ({4 * n} "
+                f"primes of {PAILLIER_BITS // 2} bits); " + _kernel_summary(inst, launches))
+            shapes_line(f"quorum keygen n={n}", inst)
+            samples += inst.samples
+            keys[n] = key
+            out[f"keygen_n{n}"] = launches
+
+        def timed_pass(label, key, signers, cfg):
+            S = key.S
+            os.environ[ENC_ENV] = CONFIGS[cfg]
+            bv.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launches()
+            with Instrument(set(), sampled=set()) as inst, \
+                    _Timed(hec, "ecdsa_verify_batch") as vb:
+                t = time.perf_counter()
+                off = gg20.offline_stage(key, signers, SessionRng(QUORUM_SEED))
+                torch.cuda.synchronize()
+                t_off = time.perf_counter() - t
+                sig = gg20.sign_online(off, MSG)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            stats = {"grouped": dict(bv.STATS["grouped"]),
+                     "per_session": bv.STATS["per_session"]}
+            bad = [k for k, v in off.debug_masks.items() if not bool(v.all())]
+            require(off.ok.all() and not bad, f"{label}: offline checks failed: {bad}")
+            require(sig.ok.all() and sig.sig_valid.all() and vb.calls == 1,
+                    f"{label}: a signature failed, or {vb.calls} ecdsa_verify_batch calls")
+            missing = [k for k in launches if launches[k] == 0 and (cfg == "tables" or k != "K2")]
+            require(not missing, f"{label}: kernels not launched: {missing}")
+            require(cfg == "tables" or launches["K2"] == 0, f"{label}: K2 was launched")
+            require(stats["grouped"] and not stats["per_session"],
+                    f"{label}: the batched checks did not run alone: {stats}")
+            y = dec.points_to_host(key.y)
+            picks = sample_lanes(S, SIG_SAMPLE)
+            require(all(hec.ecdsa_verify(y[b], MSG % hec.N, int(sig.r[b]), int(sig.s[b]))
+                        for b in picks), f"{label}: ecdsa_verify rejects a signature")
+            tp = len(signers)
+            busy = inst.busy()
+            tot = sum(busy.get(k, 0.0) for k in launches)
+            log(f"{label} S={S}, t={key.t}, n={key.n}, signers {signers} ({S * tp * (tp - 1)} "
+                f"MtA pairs; {card}): pass {dt:.2f} s (offline {t_off:.2f} s, online "
+                f"{dt - t_off:.2f} s), {S / dt:.2f} sig/s; every offline check holds; all {S} "
+                f"signatures pass ecdsa_verify_batch ({vb.secs:.2f} s of the pass), "
+                f"{len(picks)} also ecdsa_verify; batch verification {json.dumps(stats)}; "
+                + _kernel_summary(inst, launches)
+                + f" ({100 * tot / (dt * 1e3):.1f}% of the pass); peak card memory "
+                f"{peak / 2 ** 30:.2f} GiB, {(peak - base) / 2 ** 30:.2f} GiB over the "
+                f"{base / 2 ** 30:.2f} GiB allocated before the pass")
+            shapes_line(label, inst)
+            samples.extend(inst.samples)
+            return launches
+
+        for n, signers, S in QUORUM_PASSES:
+            out[f"tables_n{n}"] = timed_pass(f"quorum[tables n={n}]",
+                                             gg20.tile_key(keys[n], S), signers, "tables")
+        os.environ[ENC_ENV] = "0"
+        key5u = gg20.key_from_material(_material(keys[5]), device=dev)
+        require(key5u.ek.enc_tab_g is None and key5u.dlog_stmt.tables_rns is None,
+                "quorum[uniform]: the key has tables")
+        out["uniform_n5"] = timed_pass("quorum[uniform n=5]",
+                                       gg20.tile_key(key5u, QUORUM_UNIFORM_S), signers_of[5],
+                                       "uniform")
+
+        # n = 5 blame at S = 2 on the tables key
+        os.environ[ENC_ENV] = "1"
+        key = gg20.tile_key(keys[5], 2)
+        signers = signers_of[5]
+        rng = SessionRng(0xB1A5)
+        secs = {}
+
+        def timed(name, fn, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] = round(time.perf_counter() - t, 3)
+            return r
+
+        def gate(name, got, want):
+            require(got == want, f"quorum blame: {name} gave {got}, the spec {want}")
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Instrument(set(), sampled=set()) as inst:
+            off = timed("offline_stage[clean]", gg20.offline_stage, key, signers, rng)
+            require(off.ok.all(), "quorum blame: the clean offline stage failed")
+            spec7 = QUORUM_BLAME[7]
+            sig = timed("sign_online[7]", gg20.sign_online, off, MSG,
+                        corrupt={"step": 7, "parties": spec7})
+            require([bool(v) for v in sig.sig_valid] == [not p for p in spec7],
+                    "quorum blame[7]: the corrupted session must fail and the honest verify")
+            gate("phase7_blame", timed("phase7_blame", blame.phase7_blame, off, sig.s_i, MSG),
+                 spec7)
+            for step in (5, 6):
+                spec = QUORUM_BLAME[step]
+                off = timed(f"offline_stage[{step}]", gg20.offline_stage, key, signers, rng,
+                            corrupt={"step": step, "parties": spec})
+                require(not off.ok.any(), f"quorum blame[{step}]: off.ok holds in a session")
+                if step == 5:
+                    got = timed("phase5_blame", blame.phase5_blame, key, off)
+                else:
+                    with _Timed(hp, "open") as opens:
+                        got = timed("phase6_blame", blame.phase6_blame, key, off, rng)
+                gate(f"phase{step}_blame", got, spec)
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in launches if launches[k] == 0]
+        require(not missing, f"quorum blame: kernels not launched: {missing}")
+        out["blame_n5"] = launches
+        samples += inst.samples
+        log(f"quorum blame n=5: S=2, signers {signers}, tables; step 5 and 6 on "
+            f"{QUORUM_BLAME[5]}, step 7 on {spec7}: every blame list equals its spec, off.ok "
+            f"False in every corrupted session; seconds {json.dumps(secs)}; phase6_blame's "
+            f"host Paillier opens ({opens.calls} at {PAILLIER_BITS} bits) {opens.secs:.2f} s; "
+            + _kernel_summary(inst, launches))
+        shapes_line("quorum blame n=5", inst)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    t = time.perf_counter()
+    nshapes, nlanes, ncalls = hold_plain(samples)
+    log(f"quorum: every launch shape of the phase ({nshapes}: its keygens, passes and blame) "
+        f"held against its plain version on up to {SAMPLE_LANES} lanes each ({nlanes} lanes in "
+        f"{ncalls} plain calls, {time.perf_counter() - t:.2f} s)")
+    log(f"quorum: the phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 10: GG18
 # --------------------------------------------------------------------------
 
 GG18_KEYGEN = (16, 0x6618)          # S, SessionRng seed
-GG18_SUBSETS = ([0, 1], [1, 2], [0, 2])
+GG18_SUBSETS = ([0, 1], [1, 2], [0, 2], [0, 1, 2])
 
 
 def run_gg18(dev, key, held: set):
     """GG18 on the card.  keygen(16, 1, 3, SessionRng(0x6618), 2048): every
-    check passes, y = (sum u) G and the x shares of every signer pair
-    reconstruct sum u, every launch shape held against its plain version.
-    Then sign at S = 128 on the slice's tiled tables key (GG18's sign reads
-    S, t, x, ek, dk and y of it, which a GG20 key has): one warm-up pass
-    ([0, 1], every launch shape held), then one timed pass per subset [0, 1],
-    [1, 2], [0, 2], kernel counts set to 0 just before each and read just
-    after; each must launch all five kernels, every signature must verify
-    with low s and sig.ok.  Returns the launches of the timed [0, 1] pass."""
+    check passes, y = (sum u) G and the x shares of every signer subset of
+    GG18_SUBSETS reconstruct sum u, every launch shape held against its plain
+    version.  Then sign at S = 128 on the slice's tiled tables key (GG18's
+    sign reads S, t, x, ek, dk and y of it, which a GG20 key has): one
+    warm-up pass per subset size ([0, 1] and [0, 1, 2], every launch shape
+    held), then one timed pass per subset [0, 1], [1, 2], [0, 2], [0, 1, 2],
+    kernel counts set to 0 just before each and read just after; each must
+    launch all five kernels, every signature must verify with low s and
+    sig.ok.  Returns the launches of the timed [0, 1] pass."""
     import numpy as np
     import torch
 
@@ -2114,16 +2478,17 @@ def run_gg18(dev, key, held: set):
     for b in range(S_kg):
         total = sum(int(v) for v in kg.u[b]) % hec.N
         require(y[b] == hec.mul(total), f"gg18 keygen: y != (sum u) G in key set {b}")
-        for pair in GG18_SUBSETS:
-            require(feldman.reconstruct(pair, [int(kg.x[b, j]) for j in pair]) == total,
-                    f"gg18 keygen: x shares of {pair} do not reconstruct sum u in key set {b}")
+        for sub in GG18_SUBSETS:
+            require(feldman.reconstruct(sub, [int(kg.x[b, j]) for j in sub]) == total,
+                    f"gg18 keygen: x shares of {sub} do not reconstruct sum u in key set {b}")
     missing = [k for k in ("K1", "K3", "K4", "K5") if kg_launches[k] == 0]
     require(not missing, f"gg18 keygen: kernels not launched: {missing}")
     busy = inst.busy()
     dev_s = sum(v for k, v in busy.items() if not k.startswith("K1 ")) / 1e3
     log(f"gg18 keygen S={S_kg} (seed {seed:#x}, t=1, n=3, {PAILLIER_BITS}-bit Paillier): res.ok "
-        f"all true, y = (sum u) G and every signer pair's x shares reconstruct sum u; wall "
-        f"{dt:.2f} s (the plain holds included), host prime search {primes_t.secs:.2f} s "
+        f"all true, y = (sum u) G and the x shares of every subset of {list(GG18_SUBSETS)} "
+        f"reconstruct sum u; wall {dt:.2f} s (the plain holds included), host prime search "
+        f"{primes_t.secs:.2f} s "
         f"({2 * S_kg * 3} primes of {PAILLIER_BITS // 2} bits), kernel device time {dev_s:.3f} s")
     log("gg18 keygen: " + _kernel_summary(inst, kg_launches))
     log(f"gg18 keygen: launch shapes {json.dumps(dict(sorted(inst.by_shape.items())))}; held "
@@ -2143,10 +2508,11 @@ def run_gg18(dev, key, held: set):
         require(all(int(v) <= hec.N // 2 for v in sig.s), f"gg18 sign {subset}: a high s")
         return dt
 
-    with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
-        dt = one_pass(GG18_SUBSETS[0])
-    log(f"gg18 sign: warm-up pass {dt:.2f} s, S={S}; held against plain: "
-        f"{', '.join(inst.new_holds)}")
+    for subset in ([0, 1], [0, 1, 2]):
+        with Instrument(held, hold=("K1", "K2", "K3", "K4", "K5")) as inst:
+            dt = one_pass(subset)
+        log(f"gg18 sign: warm-up pass {subset} {dt:.2f} s, S={S}; held against plain: "
+            f"{', '.join(inst.new_holds)}")
     first = None
     for subset in GG18_SUBSETS:
         torch.cuda.synchronize()
@@ -2165,7 +2531,7 @@ def run_gg18(dev, key, held: set):
 
 
 # --------------------------------------------------------------------------
-# phases 10 and 11: the two-party protocols
+# phases 11 and 12: the two-party protocols
 # --------------------------------------------------------------------------
 
 L17_S, L17_SEED = 64, 0x2017        # sessions, each with its own Paillier key and N~
@@ -2329,7 +2695,7 @@ def run_cclst19():
 
 
 # --------------------------------------------------------------------------
-# phase 12: the runtime (state machines, relays, CLI and GG18 clients)
+# phase 13: the runtime (state machines, relays, CLI and GG18 clients)
 # --------------------------------------------------------------------------
 
 RUNTIME_GOLDEN = os.path.join("tests", "gpu", "fixtures", "runtime_768.json")
@@ -2615,7 +2981,7 @@ def run_runtime_processes(repo, work) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 13: sessions-axis sharding
+# phase 14: sessions-axis sharding
 # --------------------------------------------------------------------------
 
 SHARD_ENTRIES = 4                    # the mesh that repeats the one card
@@ -2808,6 +3174,14 @@ def main() -> int:
     torch.cuda.set_device(dev)
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # each phase's own seconds, printed before the result lines
+    phase_secs, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_secs[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     built = kernels.build_all()
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -2819,7 +3193,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     for name in kernels.SOURCES:
         kernels.lib(name)
+    lap("build")
     run_native()
+    lap("native")
 
     rnd = random.Random(20261016)
     t0 = time.perf_counter()
@@ -2827,28 +3203,42 @@ def main() -> int:
     k2 = check_k2(dev, rnd)
     ec_res = check_ec(dev, rnd)
     log(f"check: every kernel equals its plain version in {time.perf_counter() - t0:.1f} s")
+    lap("check")
 
     res16, material, kg_launches = run_keygen(dev, repo)
+    lap("keygen")
     host_profile = "--host-profile" in sys.argv[1:]
     launches, keys128, key1s, slice_sigs, slice_dt = run_slice(dev, material, host_profile)
     key128, key1 = keys128["tables"], key1s["tables"]
+    lap("slice")
     scale_launches = run_scale(dev, key1s, host_profile)
+    lap("scale")
     mt_launches = run_multitenant(dev, res16)
+    lap("multitenant")
     held = set()
     from tpu_mpc_torch.protocols.gg20 import batch as gg20
 
     blame_launches = run_blame(dev, gg20.tile_key(key1, BLAME_S), held)
+    lap("blame")
+    q_launches = run_quorum(dev)
+    lap("quorum")
     gg18_launches = run_gg18(dev, key128, held)
+    lap("gg18")
     l17_launches = run_lindell17(dev, held)
+    lap("lindell17")
     run_cclst19()
+    lap("cclst19")
     rt_launches = run_runtime_replay(dev, repo, held)
     work = os.path.join(repo, "build", "runtime_smoke", str(os.getpid()))
     os.makedirs(work, exist_ok=True)
     run_runtime_processes(repo, work)
+    lap("runtime")
     t_shard = time.perf_counter()
     sh_launches = run_sharding(dev, keys128, slice_sigs, slice_dt)
     run_sharding_ranks(dev)
     log(f"sharding: the phase {time.perf_counter() - t_shard:.1f} s")
+    lap("sharding")
+    log(f"phases (s): {json.dumps(phase_secs)}, total {sum(phase_secs.values()):.1f}")
 
     src = {"K1": ("tpu_mpc_torch/csrc/rns_exp.cu",
                   "tpu_mpc/core/pallas_rns.py:371 (_exp_kernel)"),
@@ -2870,7 +3260,9 @@ def main() -> int:
             "launches_scale_tables": scale_launches["tables"][name],
             "launches_scale_refexact": scale_launches["refexact"][name],
             "launches_multitenant": mt_launches[name],
-            "launches_blame": blame_launches[name], "launches_gg18": gg18_launches[name],
+            "launches_blame": blame_launches[name],
+            **{f"launches_quorum_{k}": v[name] for k, v in q_launches.items()},
+            "launches_gg18": gg18_launches[name],
             "launches_lindell17": l17_launches[name],
             "launches_runtime": rt_launches[name],
             "launches_sharding": sh_launches[name],

@@ -4,15 +4,17 @@ PDL and runtime outputs, and its kernels' outputs on the kernel tests'
 inputs, as golden files for the port's CPU tests
 (tests/gpu/test_torch_gg20.py, test_torch_blame.py, test_torch_gg18.py,
 test_torch_lindell17.py, test_torch_pdl.py, test_torch_runtime.py,
-test_torch_ec.py, test_torch_rns.py, test_torch_fixed.py).
+test_torch_ec.py, test_torch_rns.py, test_torch_fixed.py,
+test_torch_quorum.py).
 
     JAX_PLATFORMS=cpu TPU_MPC_PALLAS=0 python tests/gpu/make_torch_goldens.py [name ...]
 
 (from the repository root; names: gg20_blame_768, gg18_768, lindell17_1024,
-pdl_576, gg20_slice_768, gg20_ref_exact_768, runtime_768, kernels_ec,
-kernels_rns, kernels_fixed, default all; on an 8-core CPU machine 299 s wall
-for the first two, 100 s for lindell17_1024, 29 s for pdl_576 and 139 s
-for gg20_slice_768, most of it JAX compilation and the reference's keygen).
+pdl_576, gg20_slice_768, gg20_ref_exact_768, runtime_768, gg20_quorum_768,
+kernels_ec, kernels_rns, kernels_fixed, default all; on an 8-core CPU
+machine 299 s wall for the first two, 100 s for lindell17_1024, 29 s for
+pdl_576, 139 s for gg20_slice_768 and 2883 s for gg20_quorum_768, most of
+it JAX compilation and the reference's keygen).
 pytest does not collect this file.  The tests run only the port against
 what it writes, so that no tier-1 test pays for the reference's
 offline_stage, sign or keygen.  The Lindell'17 and PDL files are written
@@ -88,6 +90,11 @@ sign_manual of m = sha256(b"sm message"); every delivered Msg.to_json()
 string in delivery order, every output (wire-encoded), the partial
 signatures, the signature, and party 1's LocalKey file as
 runtime.cli.save_local_key writes it.
+
+tests/gpu/fixtures/gg20_quorum_768.json (tests/gpu/test_torch_quorum.py): the
+wide quorums and the n = 5 / n = 2 blame matrices (gg20_quorum below), and
+tests/gpu/fixtures/gg20key_53_1_4_8_768.json, the n = 8 key they sign
+with, written once by the reference's keygen.
 
 tests/gpu/fixtures/kernels_ec.json, kernels_rns.json, kernels_fixed.json:
 the reference's kernels on the seeded inputs of the kernel tests that held
@@ -528,6 +535,175 @@ def runtime768() -> dict:
             "local_key_1": key_file}
 
 
+# ---- wide quorums and the n = 5 / n = 2 blame matrices ---------------------
+
+KEY_N2 = os.path.join(REPO, "tests", "fixtures", "gg20key_51_1_1_2_768.json")
+KEY_N5 = os.path.join(REPO, "tests", "fixtures", "gg20key_52_1_2_5_768.json")
+KEY_N8 = os.path.join(OUT, "gg20key_53_1_4_8_768.json")
+N8_KEYGEN = (0x53, 1, 4, 8, 768)          # seed, S, t, n, bits (tests/test_gg20_adv_quorum.py)
+N5_SIGNERS, N8_SIGNERS = [0, 2, 3, 4], [0, 1, 2, 4, 6, 7]
+N5_SCENARIOS, N5_STEP7 = [[0], [0, 3]], [[1, 3], []]
+N2_SCENARIOS, N2_STEP7 = [[0], [1], [0, 1]], [[1]]
+QUORUM_SEEDS = {"n5_honest": 0x5151, "n5_step5": 0x5205, "n5_step6": 0x5206,
+                "n2_step5": 0x5105, "n2_step6": 0x5106, "n2_step7": 0x5107,
+                "small_paillier": 0x54, "full": 0x3F01, "gg18_full": 0xBB, "n8": 0x8181}
+M_N5, M_N8, M_STEP7 = 0x5151, 0x8181, 0xDEAD_BEEF    # the JAX package's tests' messages
+M_FULL, M_GG18_FULL = 987654321, 12345678901234567890
+
+
+def _fixture_key(path: str, S: int, tables: bool):
+    """Session 0 of a key file in tests/keycache.py's format, tiled to S
+    sessions; the randomizer tables built in the tables configuration."""
+    with open(path) as f:
+        d = json.load(f)
+    d = {k: ([v[0]] * S if isinstance(v, list) else v) for k, v in d.items()}
+    d["S"] = S
+    key = _keycache()._decode(d)
+    if tables:
+        key.ek.ensure_enc_tables()
+    return key
+
+
+def _n8_key():
+    """keygen(1, 4, 8, SessionRng(0x53), 768) of the JAX package, written
+    once to tests/gpu/fixtures/ in tests/keycache.py's format."""
+    from tpu_mpc.protocols.gg20 import batch as gg20
+    from tpu_mpc.utils.rng import SessionRng
+
+    seed, S, t, n, bits = N8_KEYGEN
+    if not os.path.exists(KEY_N8):
+        t0 = time.perf_counter()
+        res = gg20.keygen(S, t, n, SessionRng(seed), paillier_bits=bits)
+        assert res.ok.all(), f"n = 8 keygen failed: {res.bad_actors}"
+        obj = _keycache()._encode(res.key)
+        obj["seed"] = seed
+        with open(KEY_N8, "w") as f:
+            json.dump(obj, f)
+        print(f"  n8 keygen {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def gg20_quorum() -> dict:
+    """The JAX package's wide quorums and blame matrices at 768 bits, with the
+    cross-session batch verification forced (TPU_MPC_BATCH_VERIFY=1):
+
+      n5      tests/fixtures/gg20key_52_1_2_5_768.json tiled to S = 2,
+              signers [0, 2, 3, 4], tables: an honest offline_stage and
+              sign_online(0x5151), then on the same offline state
+              sign_online(0xDEADBEEF) with s_i doubled on [[1, 3], []] and
+              phase7_blame; offline_stage with step 5 and step 6 on
+              [[0], [0, 3]], phase5_blame / phase6_blame
+              (tests/test_gg20_adv_quorum{,5,6,7}.py);
+      n2      tests/fixtures/gg20key_51_1_1_2_768.json, signers [0, 1],
+              uniform: steps 5 and 6 on [[0], [1], [0, 1]] (S = 3), a clean
+              S = 1 pass with step 7 on [[1]], and keygen(1, 1, 2,
+              SessionRng(0x54), 768) with party 1's Paillier key at half
+              width (tests/test_gg20_adversarial.py);
+      full    session 0 of tests/fixtures/gg20key_20_2_1_3_768.json tiled to
+              S = 2, tables:
+              GG20 [0, 1, 2] (tests/test_gg20.py:54) and GG18 sign [0, 1, 2]
+              on the same key (GG18's sign reads S, t, x, ek, dk and y);
+      n8      keygen(1, 4, 8, SessionRng(0x53), 768) (written once to
+              tests/gpu/fixtures/gg20key_53_1_4_8_768.json) tiled to S = 2,
+              signers [0, 1, 2, 4, 6, 7], tables, sign_online(0x8181).
+    """
+    import numpy as np
+
+    from tpu_mpc.protocols.gg18 import batch as gg18m
+    from tpu_mpc.protocols.gg20 import batch as gg20
+    from tpu_mpc.protocols.gg20 import blame
+    from tpu_mpc.utils.rng import SessionRng
+
+    saved = {k: os.environ.get(k) for k in ("TPU_MPC_BATCH_VERIFY", "TPU_MPC_ENC_TABLES")}
+    os.environ["TPU_MPC_BATCH_VERIFY"] = "1"
+    out = {"bits": 768, "seeds": QUORUM_SEEDS}
+
+    def offline(name, key, signers, corrupt=None):
+        t = time.perf_counter()
+        rng = SessionRng(QUORUM_SEEDS[name])
+        off = gg20.offline_stage(key, signers, rng, corrupt=corrupt)
+        print(f"  {name}: offline_stage {time.perf_counter() - t:.1f} s", flush=True)
+        return off, rng, {"seed": QUORUM_SEEDS[name], "corrupt": corrupt, **_state(off)}
+
+    def step7(off, parties):
+        sig = gg20.sign_online(off, M_STEP7, corrupt={"step": 7, "parties": parties})
+        return {"m": str(M_STEP7), "parties": parties, "s_i": strs(sig.s_i),
+                "sig_valid": [bool(v) for v in sig.sig_valid],
+                "phase7": blame.phase7_blame(off, sig.s_i, M_STEP7)}
+
+    try:
+        # n = 5, t = 2, four signers
+        os.environ["TPU_MPC_ENC_TABLES"] = "1"
+        key = _fixture_key(KEY_N5, 2, tables=True)
+        n5 = {"key": "tests/fixtures/gg20key_52_1_2_5_768.json", "S": 2, "tables": True,
+              "signers": N5_SIGNERS, "m": str(M_N5)}
+        off, rng, run = offline("n5_honest", key, N5_SIGNERS)
+        run.update(_sig(gg20.sign_online(off, M_N5)))
+        run["step7"] = step7(off, N5_STEP7)
+        n5["honest"] = run
+        for step in (5, 6):
+            name = f"n5_step{step}"
+            off, rng, run = offline(name, key, N5_SIGNERS,
+                                    {"step": step, "parties": N5_SCENARIOS})
+            run["blame"] = (blame.phase5_blame(key, off) if step == 5
+                            else blame.phase6_blame(key, off, rng))
+            n5[f"step{step}"] = run
+        out["n5"] = n5
+
+        # n = 2, t = 1
+        os.environ["TPU_MPC_ENC_TABLES"] = "0"
+        n2 = {"key": "tests/fixtures/gg20key_51_1_1_2_768.json", "tables": False,
+              "signers": [0, 1]}
+        key = _fixture_key(KEY_N2, len(N2_SCENARIOS), tables=False)
+        for step in (5, 6):
+            name = f"n2_step{step}"
+            off, rng, run = offline(name, key, [0, 1], {"step": step, "parties": N2_SCENARIOS})
+            run["blame"] = (blame.phase5_blame(key, off) if step == 5
+                            else blame.phase6_blame(key, off, rng))
+            n2[f"step{step}"] = run
+        key = _fixture_key(KEY_N2, 1, tables=False)
+        off, rng, run = offline("n2_step7", key, [0, 1])
+        run["step7"] = step7(off, N2_STEP7)
+        n2["step7"] = run
+        t = time.perf_counter()
+        res = gg20.keygen(1, 1, 2, SessionRng(QUORUM_SEEDS["small_paillier"]), paillier_bits=768,
+                          corrupt={"small_paillier": [1]})
+        n2["small_paillier"] = {"seed": QUORUM_SEEDS["small_paillier"], "parties": [1],
+                                "ok": [bool(v) for v in np.asarray(res.ok)],
+                                "bad_actors": np.asarray(res.bad_actors, dtype=bool).tolist()}
+        print(f"  small_paillier keygen {time.perf_counter() - t:.1f} s", flush=True)
+        out["n2"] = n2
+
+        # the full quorum of the n = 3 key, GG20 and GG18
+        os.environ["TPU_MPC_ENC_TABLES"] = "1"
+        key = _fixture_key(KEY_FIXTURE, 2, tables=True)
+        full = {"key": "tests/fixtures/gg20key_20_2_1_3_768.json", "S": 2, "tables": True,
+                "signers": [0, 1, 2], "m": str(M_FULL), "gg18_m": str(M_GG18_FULL)}
+        off, rng, run = offline("full", key, [0, 1, 2])
+        run.update(_sig(gg20.sign_online(off, M_FULL)))
+        full["gg20"] = run
+        t = time.perf_counter()
+        sig = gg18m.sign(key, [0, 1, 2], M_GG18_FULL, SessionRng(QUORUM_SEEDS["gg18_full"]))
+        full["gg18"] = {"seed": QUORUM_SEEDS["gg18_full"], **_sig(sig)}
+        print(f"  gg18 [0, 1, 2] {time.perf_counter() - t:.1f} s", flush=True)
+        out["full"] = full
+
+        # n = 8, t = 4, six signers
+        _n8_key()
+        key = _fixture_key(KEY_N8, 2, tables=True)
+        off, rng, run = offline("n8", key, N8_SIGNERS)
+        run.update(_sig(gg20.sign_online(off, M_N8)))
+        out["n8"] = {"key": "tests/gpu/fixtures/gg20key_53_1_4_8_768.json",
+                     "keygen": list(N8_KEYGEN), "S": 2, "tables": True,
+                     "signers": N8_SIGNERS, "m": str(M_N8), "run": run}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 # ---- the kernel tests' reference outputs ----------------------------------
 
 def _test_module(name):
@@ -666,7 +842,7 @@ def kernels_fixed() -> dict:
 GOLDENS = {"gg20_blame_768": (gg20_blame, "1"), "gg18_768": (gg18, "1"),
            "lindell17_1024": (lindell17, "0"), "pdl_576": (pdl576, "0"),
            "gg20_slice_768": (gg20_slice, "0"), "gg20_ref_exact_768": (gg20_ref_exact, "0"),
-           "runtime_768": (runtime768, "0"),
+           "runtime_768": (runtime768, "0"), "gg20_quorum_768": (gg20_quorum, "1"),
            "kernels_ec": (kernels_ec, "0"), "kernels_rns": (kernels_rns, "0"),
            "kernels_fixed": (kernels_fixed, "0")}
 
@@ -684,6 +860,12 @@ def main() -> int:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    # drop jax's compiled programs before the process passes the kernel's
+    # mapped-area limit (the wide quorums compile more than it holds)
+    spec = importlib.util.spec_from_file_location("gpu_conftest", os.path.join(HERE, "conftest.py"))
+    conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conftest)
+    conftest.JitMapGuard().install()
     os.makedirs(OUT, exist_ok=True)
     t0 = time.perf_counter()
     for name in names:

@@ -223,6 +223,42 @@ def test_k2_multitenant_24_groups(dev, monkeypatch):
                        pr.fixed_plain(ew, grow, rows, T, nwins, woffs, nb))
 
 
+
+@pytest.mark.parametrize("G", [5, 8])
+def test_k2_five_and_eight_groups_in_the_callers_lane_order(dev, G):
+    """K2 with the key groups of an n = 5 or n = 8 key in one call at 2048
+    bits, the lanes in the caller's order (a tile of 8 lanes holds up to 8
+    groups: two staged, the others read from L2), at ragged lane counts:
+    kernel == fixed_plain on the same inputs, and python pow on every lane."""
+    from tpu_mpc_torch import kernels
+    from tpu_mpc_torch.core import pallas_rns as pr
+    from tpu_mpc_torch.core.limbs import batch_to_limbs, nlimbs
+    from tpu_mpc_torch.core.modctx import ModCtx
+    from tpu_mpc_torch.core.rns import RnsCtx, RnsLazy, RnsParams
+
+    L = pr.LANE_TILE
+    rnd = random.Random(50 + G)
+    bits, ebits = 2048, 64
+    ns = np.asarray([rnd.getrandbits(bits) | 1 | (1 << (bits - 1)) for _ in range(G)],
+                    dtype=object)
+    g = np.asarray([[rnd.getrandbits(bits) % int(n) for n in ns]], dtype=object)
+    T = ModCtx.from_ints(ns, bits, dev).make_tables_rns(g, ebits)[0]
+    for B in (L - 1, L + 1, G * L + 3):
+        gmap = np.asarray([(3 * i + i // G) % G for i in range(B)])
+        if B >= L:
+            assert len(set(gmap[:L].tolist())) == min(G, L)
+        e = np.asarray([rnd.getrandbits(ebits) for _ in range(B)], dtype=object)
+        args = (torch.as_tensor(pr._pack_words(batch_to_limbs(e, nlimbs(ebits))), device=dev),
+                torch.as_tensor(gmap, device=dev), RnsCtx.from_ints(ns[gmap], bits, dev).rows,
+                [T], [ebits // 4], [0], bits)
+        n0 = kernels.LAUNCHES["K2"]
+        out = pr.fixed_call(*args)
+        assert kernels.LAUNCHES["K2"] == n0 + 1
+        assert torch.equal(out, pr.fixed_plain(*args))
+        got = RnsLazy((out,), (B,), ns[gmap], RnsParams(bits).MA).ints()
+        assert all(int(v) == pow(int(g[0, gi]), int(k), int(ns[gi]))
+                   for v, gi, k in zip(got, gmap, e))
+
 RAGGED_EC = (1, 7, 9, 33, 257)
 MAIN_EC = (256, 512)            # lane counts of the main path that the card tests run
 
